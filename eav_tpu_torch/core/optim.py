@@ -1,0 +1,53 @@
+"""Freeze masks and the AdamW of the fine-tune protocol.
+
+The reference keeps ONE torch AdamW across the freeze -> unfreeze phases
+(`Transformer_Audio.py:30,45-48`). Frozen parameters have
+``requires_grad=False``, so their ``.grad`` stays None and AdamW skips them:
+no moment update, no weight decay, and no advance of their step count, so
+bias correction starts afresh when they unfreeze. ``torch.optim.AdamW`` with
+``requires_grad`` toggled per phase is exactly the per-leaf-count update of
+``eav_tpu/core/optim.py`` (``adam_update``). Weight decay is the reference's
+effective torch default, 0.01 in the AST preset, on every trainable parameter.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import torch
+from torch import nn
+
+from eav_tpu_torch.core.config import FinetuneConfig
+
+# The head of the frozen phase (`Transformer_Audio.py:53-56`) on dotted
+# parameter names: the same set as the JAX package's
+# r"(^|/)(head|classifier(_ln)?)(/|$)" on '/'-joined paths. The models'
+# ``head_mode_regex`` and the trainer's default share this one constant, so
+# the frozen-feature cache gate compares like with like.
+HEAD_REGEX = r"(^|\.)(head|classifier(_ln)?)(\.|$)"
+
+
+def trainable_mask(model: nn.Module, freeze: bool, head_regex: str = HEAD_REGEX) -> Dict[str, bool]:
+    """freeze=True -> only parameters whose name matches ``head_regex``
+    train; freeze=False -> all train."""
+    rx = re.compile(head_regex)
+    return {
+        name: (not freeze) or rx.search(name) is not None
+        for name, _ in model.named_parameters()
+    }
+
+
+def set_trainable(model: nn.Module, freeze: bool, head_regex: str = HEAD_REGEX) -> None:
+    """Set ``requires_grad`` from :func:`trainable_mask`."""
+    mask = trainable_mask(model, freeze, head_regex)
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+
+
+def make_optimizer(model: nn.Module, cfg: FinetuneConfig) -> torch.optim.AdamW:
+    """One AdamW over every parameter for the whole fit; each phase sets its lr."""
+    return torch.optim.AdamW(
+        model.parameters(), lr=cfg.phases[0].lr, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=cfg.weight_decay,
+    )

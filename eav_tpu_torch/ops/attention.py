@@ -1,0 +1,261 @@
+"""Flash attention: hand-written CUDA kernels for Hopper, with plain versions.
+
+Three kernels (``csrc/flash_attention.cu``) replace the three Pallas TPU
+kernels of the JAX package (``eav_tpu/ops/pallas/attention.py``):
+
+- K1 ``flash_fwd``: O = softmax(Q K^T scale + bias) V by the online-softmax
+  recurrence, and the per-row LSE = m + log l that the backward reads;
+- K2 ``flash_dkv``: dK and dV, per K tile over all Q tiles;
+- K3 ``flash_dq``: dQ, per Q tile over all K tiles.
+
+Operands are head-major (BH, T, D) with ``t_real`` <= T real keys; the keys
+past ``t_real`` are masked with -1e30 (exactly zero probability). The kernels
+tile T by 64 and take any length, so the (B, T, H, D) API does not pad.
+bfloat16 operands go through tensor-core kernels, float32 operands through
+float32 FMA kernels; both accumulate in float32 with a float32 softmax state,
+and P is rounded to V's type before P V and dS to Q's type before the dS
+products, as on the TPU.
+
+Each kernel has a plain PyTorch version (``*_plain``) with the same outputs
+and the same rounding points. A wrapper runs the plain version for tensors on
+the CPU and the CUDA kernel for tensors on a GPU; it never falls back from
+one to the other. Each wrapper counts its kernel launches in ``.launches``.
+``Di = rowsum(dO * O)`` stays plain PyTorch in float32, as it stayed XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "eav_flash_fwd": (_I, _I, _I) + (_VP,) * 5 + (_I, _I, _I, ctypes.c_float, _VP),
+    "eav_flash_dkv": (_I, _I, _I) + (_VP,) * 8 + (_I, _I, _I, ctypes.c_float, _VP),
+    "eav_flash_dq": (_I, _I, _I) + (_VP,) * 7 + (_I, _I, _I, ctypes.c_float, _VP),
+}
+
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with typed entry points."""
+    global _lib
+    if _lib is None:
+        from eav_tpu_torch.ops import build
+
+        lib = build.load("flash_attention")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.eav_cuda_error_string.argtypes = (ctypes.c_int,)
+        lib.eav_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _scale(d: int) -> float:
+    return float(1.0 / math.sqrt(d))
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version), False for CUDA tensors (kernel);
+    raises for anything else or a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"flash attention takes CPU or one CUDA device, got {sorted(kinds)}")
+
+
+def _check_operands(q: torch.Tensor, *same: torch.Tensor) -> Tuple[int, int, int]:
+    if q.dim() != 3:
+        raise ValueError(f"expected (BH, T, D) operands, got {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
+    for t in same:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError("q, k, v (and dO) must share shape and dtype")
+    bh, t_pad, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not among the built kernels {HEAD_DIMS}")
+    return bh, t_pad, d
+
+
+def _check_rows(bh: int, t_pad: int, *rows: torch.Tensor) -> None:
+    for r in rows:
+        if r.shape != (bh, t_pad) or r.dtype != torch.float32:
+            raise ValueError(f"lse / di must be float32 ({bh}, {t_pad}), got {r.dtype} {tuple(r.shape)}")
+
+
+def _launch(symbol: str, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: int) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{symbol}: operands must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{symbol}: bf16 operands must be 16-byte aligned")
+    if not 1 <= t_real <= t_pad:
+        raise ValueError(f"t_real={t_real} must lie in [1, {t_pad}]")
+    lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = getattr(lib, symbol)(
+        q.device.index, _DTYPE_CODES[q.dtype], q.shape[-1],
+        *(t.data_ptr() for t in tensors),
+        bh, t_pad, t_real, _scale(q.shape[-1]), stream,
+    )
+    if rc != 0:
+        msg = lib.eav_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{symbol} launch failed: {msg} ({rc})")
+
+
+# -----------------------------------------------------------------------------
+# Plain versions: the same functions in PyTorch, (T, T) scores in float32
+# -----------------------------------------------------------------------------
+
+
+def _key_bias(t_real: int, t_pad: int, device) -> torch.Tensor:
+    """(t_pad,) float32: 0 for real keys, -1e30 for masked ones."""
+    keep = torch.arange(t_pad, device=device) < t_real
+    return torch.where(keep, 0.0, NEG_INF).to(torch.float32)
+
+
+def _scores(q, k, t_real):
+    s = _scale(q.shape[-1]) * torch.matmul(q.float(), k.float().transpose(1, 2))
+    return s + _key_bias(t_real, k.shape[1], q.device)
+
+
+def flash_fwd_plain(q, k, v, t_real: int):
+    """Plain K1: (o in q's dtype, lse (BH, T) float32)."""
+    s = _scores(q, k, t_real)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
+    return o.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
+
+
+def _probs_and_dscores(q, k, v, do, lse, di, t_real):
+    p = torch.exp(_scores(q, k, t_real) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = (p * (dp - di[..., None])).to(q.dtype).float()
+    return p, ds
+
+
+def flash_dkv_plain(q, k, v, do, lse, di, t_real: int):
+    """Plain K2: (dk, dv) in k's and v's dtype."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, di, t_real)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
+    dk = _scale(q.shape[-1]) * torch.matmul(ds.transpose(1, 2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_dq_plain(q, k, v, do, lse, di, t_real: int):
+    """Plain K3: dq in q's dtype."""
+    _, ds = _probs_and_dscores(q, k, v, do, lse, di, t_real)
+    return (_scale(q.shape[-1]) * torch.matmul(ds, k.float())).to(q.dtype)
+
+
+# -----------------------------------------------------------------------------
+# Kernel wrappers
+# -----------------------------------------------------------------------------
+
+
+def flash_fwd(q, k, v, t_real: int):
+    """K1 (replaces ``_flash_kernel``, eav_tpu/ops/pallas/attention.py:73).
+    q, k, v (BH, T, D) -> (o (BH, T, D), lse (BH, T) float32)."""
+    bh, t_pad, _ = _check_operands(q, k, v)
+    if _on_cpu(q, k, v):
+        return flash_fwd_plain(q, k, v, t_real)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
+    _launch("eav_flash_fwd", q, (q, k, v, o, lse), bh, t_pad, t_real)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_dkv(q, k, v, do, lse, di, t_real: int):
+    """K2 (replaces ``_dkv_kernel``, attention.py:113) -> (dk, dv)."""
+    bh, t_pad, _ = _check_operands(q, k, v, do)
+    _check_rows(bh, t_pad, lse, di)
+    if _on_cpu(q, k, v, do, lse, di):
+        return flash_dkv_plain(q, k, v, do, lse, di, t_real)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("eav_flash_dkv", q, (q, k, v, do, lse, di, dk, dv), bh, t_pad, t_real)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+def flash_dq(q, k, v, do, lse, di, t_real: int):
+    """K3 (replaces ``_dq_kernel``, attention.py:158) -> dq."""
+    bh, t_pad, _ = _check_operands(q, k, v, do)
+    _check_rows(bh, t_pad, lse, di)
+    if _on_cpu(q, k, v, do, lse, di):
+        return flash_dq_plain(q, k, v, do, lse, di, t_real)
+    dq = torch.empty_like(q)
+    _launch("eav_flash_dq", q, (q, k, v, do, lse, di, dq), bh, t_pad, t_real)
+    flash_dq.launches += 1
+    return dq
+
+
+flash_fwd.launches = 0
+flash_dkv.launches = 0
+flash_dq.launches = 0
+KERNELS = (flash_fwd, flash_dkv, flash_dq)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# Autograd and the public layouts
+# -----------------------------------------------------------------------------
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on head-major (BH, T, D) operands: K1 forward, K2 and K3
+    backward (the JAX package's ``custom_vjp`` pair)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t_real: int):
+        o, lse = flash_fwd(q, k, v, t_real)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.t_real = t_real
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        di = (do.float() * o.float()).sum(dim=-1)
+        dk, dv = flash_dkv(q, k, v, do, lse, di, ctx.t_real)
+        dq = flash_dq(q, k, v, do, lse, di, ctx.t_real)
+        return dq, dk, dv, None
+
+
+def flash_attention_bh(q, k, v, t_real: int):
+    """q, k, v (BH, T_pad, D) with keys past ``t_real`` masked -> o, same layout."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), t_real)
+
+
+def _to_bh(x):
+    b, t, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+
+
+def flash_attention(q, k, v):
+    """Multi-head attention in the (B, T, H, D) layout, scale 1/sqrt(D)."""
+    b, t, h, d = q.shape
+    o = FlashAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), t)
+    return o.reshape(b, h, t, d).permute(0, 2, 1, 3)
