@@ -7,20 +7,33 @@ Phases, each of which fails the run on error:
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: the package's CUDA source with nvcc;
-3. kernels: each flash-attention kernel (K1 forward, K2 dK/dV, K3 dQ) against
-   its plain PyTorch version at the AST shape (B 8, H 12, D 64, T 1214) and at
-   T 197, in bfloat16 and float32, directly and through the autograd
-   function, and a planted fault (one key short in the mask) that the same
-   checks must reject; times of kernel, plain version and the library's
-   attention forward and backward (yardsticks only: the port never calls them);
+3. kernels: each flash-attention kernel (K1 forward, K2 dK/dV, K3 dQ, K5
+   one-pass forward) against its plain PyTorch version at the AST shape
+   (B 8, H 12, D 64, T 1214) and at T 197, in bfloat16 and float32, K1-K3
+   also through the autograd function, and a planted fault (one key short in
+   the mask) that the same checks must reject; times of kernel, plain version
+   and the library's attention forward and backward (yardsticks only: the
+   port never calls them);
 4. model and frontend: full-width AST-base with flash attention against math
    attention on the same weights, resampling and fbank on the card against
    the CPU;
 5. main path: ``ModalityPipelines.run_audio`` on a synthetic EAV subject with
    the full-width ``ast_finetune`` preset (AST-base, bf16), one frozen and one
-   unfrozen epoch; the launch counts of all three kernels must rise;
+   unfrozen epoch; the launch counts of K1, K2 and K3 must rise;
 6. train step: median time of the unfrozen AST-base train step at batch 8,
-   and a torch.profiler breakdown of its device time by kernel.
+   and a torch.profiler breakdown of its device time by kernel;
+7. the one-pass experiment (``eav_tpu_torch.scripts.flash_onepass_experiment``)
+   at the AST shape: streaming (K1) and one-pass (K5) forward times, their
+   max |err| (within the bf16 tolerance), GELU erf and tanh; the launch
+   counts of K5 and K1 must rise;
+8. vision path: ``ModalityPipelines.run_vision`` with the full-width
+   ``vit_finetune`` preset (ViT-base, 224x224, bf16), one frozen and one
+   unfrozen epoch, on a synthetic subject's uint8 frame cache (the script
+   needs no video decoder: cv2 decodes on the CPU side, tested there);
+   finite losses, the metrics keys, trial-voted archives;
+9. the unfrozen ViT-base train step at batch 128 (uint8 56x56 frames,
+   resized in the model), median time of 10 with the preset's math attention
+   and its profile, then the same step through the flash kernels.
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
 float32 means float32 throughout the run. The last lines are the ``kernels``
@@ -153,18 +166,25 @@ def check_kernels(t: int, dtype_name: str, seed: int) -> dict:
     torch.cuda.synchronize()
     for g, want in zip(grads, (dq_p, dk_p, dv_p)):
         max_err(g, want, *tol)
+    # K5, the one-pass forward, against its own plain version
+    o1_p, lse1_p = A.flash_onepass_plain(q, k, v, t)
+    o1, lse1 = A.flash_onepass(q, k, v, t)
+    torch.cuda.synchronize()
+    errs["flash_onepass"] = max(max_err(o1, o1_p, *tol), max_err(lse1, lse1_p, *tol_lse))
     # planted fault: a mask one key short must fail every check above
     o_f, lse_f = A.flash_fwd_plain(q, k, v, t - 1)
     dk_f, dv_f = A.flash_dkv_plain(q, k, v, do, lse_p, di, t - 1)
     dq_f = A.flash_dq_plain(q, k, v, do, lse_p, di, t - 1)
+    o1_f, lse1_f = A.flash_onepass_plain(q, k, v, t - 1)
     for got, want, tl, what in ((o, o_f, tol, "O"), (lse, lse_f, tol_lse, "LSE"),
                                 (dk, dk_f, tol, "dK"), (dv, dv_f, tol, "dV"),
-                                (dq, dq_f, tol, "dQ")):
+                                (dq, dq_f, tol, "dQ"), (o1, o1_f, tol, "K5 O"),
+                                (lse1, lse1_f, tol_lse, "K5 LSE")):
         must_reject(got, want, *tl, f"{what} against a mask at t_real={t - 1}")
     log(f"kernels T={t} {dtype_name}: max abs err "
         + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
         + f" (atol, rtol {tol}; LSE {tol_lse}); autograd ok; a mask at t_real={t - 1} "
-        "fails O, LSE, dK, dV and dQ")
+        "fails O, LSE, dK, dV, dQ and K5's O and LSE")
     return errs
 
 
@@ -187,6 +207,8 @@ def time_kernels(seed: int) -> dict:
                       cuda_ms(lambda: A.flash_dkv_plain(q, k, v, do, lse, di, t))),
         "flash_dq": (cuda_ms(lambda: A.flash_dq(q, k, v, do, lse, di, t)),
                      cuda_ms(lambda: A.flash_dq_plain(q, k, v, do, lse, di, t))),
+        "flash_onepass": (cuda_ms(lambda: A.flash_onepass(q, k, v, t)),
+                          cuda_ms(lambda: A.flash_onepass_plain(q, k, v, t))),
     }
     # SDPA on the same values in its (B, H, T, D) layout
     q4, k4, v4, do4 = (x.view(B, H, t, D) for x in (q, k, v, do))
@@ -223,7 +245,8 @@ def time_kernels(seed: int) -> dict:
         f"ms, aten flash backward {lib_bwd:.3f} ms (max abs diff of its dQ, dK, dV from "
         f"K2/K3: {diff:.3g})")
     # the backward's library time stands on both K2 and K3: one call covers both
-    library = {"flash_fwd": sdpa_fwd, "flash_dkv": lib_bwd, "flash_dq": lib_bwd}
+    library = {"flash_fwd": sdpa_fwd, "flash_dkv": lib_bwd, "flash_dq": lib_bwd,
+               "flash_onepass": sdpa_fwd}
     return {n: (ms, plain, library[n]) for n, (ms, plain) in times.items()}
 
 
@@ -238,6 +261,7 @@ def kernel_bounds(t: int) -> dict:
         "flash_fwd": (4 * t * t * D * bh, 3 * mat + mat + row),
         "flash_dkv": (8 * t * t * D * bh, 4 * mat + 2 * row + 2 * mat),
         "flash_dq": (6 * t * t * D * bh, 4 * mat + 2 * row + mat),
+        "flash_onepass": (4 * t * t * D * bh, 3 * mat + mat + row),  # K1's work
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -251,6 +275,7 @@ LIBRARY_CALL = {  # what library_ms times for each kernel
     "flash_fwd": "scaled_dot_product_attention forward",
     "flash_dkv": "aten flash backward: dQ, dK and dV together",
     "flash_dq": "aten flash backward: dQ, dK and dV together",
+    "flash_onepass": "scaled_dot_product_attention forward",
 }
 
 KERNEL_TABLE = {  # name -> (source, TPU kernel it replaces)
@@ -260,6 +285,8 @@ KERNEL_TABLE = {  # name -> (source, TPU kernel it replaces)
                   "eav_tpu/ops/pallas/attention.py:113"),
     "flash_dq": ("eav_tpu_torch/csrc/flash_attention.cu",
                  "eav_tpu/ops/pallas/attention.py:158"),
+    "flash_onepass": ("eav_tpu_torch/csrc/flash_attention.cu",
+                      "scripts/flash_onepass_experiment.py:25"),
 }
 
 
@@ -360,7 +387,7 @@ def run_main_path() -> dict:
         res = pipes.run_audio(1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in A.KERNELS}
+        launches = {fn.__name__: fn.launches for fn in (A.flash_fwd, A.flash_dkv, A.flash_dq)}
     hist = res.artifacts["history"]
     m = res.metrics
     log(f"run_audio (ast_finetune, AST-base bf16, 1 frozen + 1 unfrozen epoch, 30 train / "
@@ -381,8 +408,12 @@ def run_main_path() -> dict:
 # -----------------------------------------------------------------------------
 
 
-def train_step_setup():
-    """(trainer, optimizer, x, y) for the full-width unfrozen AST step."""
+def train_step_setup(preset_name: str = "ast_finetune", attn_impl=None):
+    """(trainer, optimizer, x, y) for the full-width unfrozen step of a
+    preset: AST on (8, 1024, 128) fbanks, ViT on (128, 56, 56, 3) uint8
+    frames, as the paths feed them; ``attn_impl`` overrides the preset's."""
+    import dataclasses
+
     import torch
 
     from eav_tpu_torch.core.config import get_preset
@@ -390,12 +421,21 @@ def train_step_setup():
     from eav_tpu_torch.train.loop import Trainer
     from eav_tpu_torch.train.pipeline import build_model
 
-    preset = get_preset("ast_finetune")
+    preset = get_preset(preset_name)
+    if attn_impl is not None:
+        ft = preset.finetune
+        preset = preset.replace(finetune=dataclasses.replace(
+            ft, model_kwargs={**ft.model_kwargs, "attn_impl": attn_impl}))
     trainer = Trainer(build_model(preset), preset.finetune, device="cuda")
     opt = make_optimizer(trainer.model, preset.finetune)
     gen = torch.Generator(device="cuda").manual_seed(2)
     bs = preset.finetune.batch_size
-    x = torch.randn(bs, 1024, 128, generator=gen, device="cuda")
+    if preset_name == "ast_finetune":
+        x = torch.randn(bs, 1024, 128, generator=gen, device="cuda")
+    else:
+        side = preset.vision.face_image_size
+        x = torch.randint(0, 256, (bs, side, side, 3), generator=gen, device="cuda",
+                          dtype=torch.uint8)
     y = torch.randint(0, 5, (bs,), generator=gen, device="cuda")
     for _ in range(3):  # warm-up: cuBLAS handles, allocator, optimizer state
         trainer.train_step(opt, x, y)
@@ -403,10 +443,13 @@ def train_step_setup():
     return trainer, opt, x, y
 
 
-def time_train_step(card: str) -> None:
+def time_train_step(card: str, preset_name: str = "ast_finetune",
+                    what: str = "AST-base, unfrozen, bs 8, bf16, flash kernels",
+                    attn_impl=None) -> None:
     import torch
 
-    trainer, opt, x, y = train_step_setup()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, opt, x, y = train_step_setup(preset_name, attn_impl)
     times = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -415,19 +458,19 @@ def time_train_step(card: str) -> None:
         times.append(time.perf_counter() - t0)
     ms = statistics.median(times) * 1e3
     bs = x.shape[0]
-    log(f"train step (AST-base, unfrozen, bs {bs}, bf16, flash kernels): median {ms:.2f} ms "
-        f"of 10, {bs / ms * 1e3:.2f} samples/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    log(f"train step ({what}): median {ms:.2f} ms of 10, {bs / ms * 1e3:.2f} samples/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
 
 
-def profile_train_step(card: str, steps: int = 5) -> None:
+def profile_train_step(card: str, preset_name: str = "ast_finetune", steps: int = 5,
+                       top: int = 20) -> None:
     """Device time per step by kernel, from torch.profiler over ``steps``
     steady-state train steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer, opt, x, y = train_step_setup()
+    trainer, opt, x, y = train_step_setup(preset_name)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -442,11 +485,112 @@ def profile_train_step(card: str, steps: int = 5) -> None:
     if not kernels or busy_ms == 0:
         log("profile: the trace holds no device time (not measured)")
         return
-    log(f"profile over {steps} steps on {card}: wall {wall_ms:.2f} ms/step under the "
-        f"profiler, device busy {busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}%)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+    log(f"profile of the {preset_name} step over {steps} steps on {card}: wall {wall_ms:.2f} "
+        f"ms/step under the profiler, device busy {busy_ms:.2f} ms/step "
+        f"({100 * busy_ms / wall_ms:.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / steps
         log(f"  {ms:8.3f} ms/step {100 * ms / busy_ms:5.1f}%  x{e.count // steps:<4d} {e.key[:110]}")
+
+
+# -----------------------------------------------------------------------------
+# 7. the one-pass experiment
+# -----------------------------------------------------------------------------
+
+
+def run_experiment(card: str) -> dict:
+    """The experiment's run on the card; returns the launch counts of that run."""
+    import torch
+
+    from eav_tpu_torch.ops import attention as A
+    from eav_tpu_torch.scripts.flash_onepass_experiment import run
+
+    A.reset_launches()
+    res = run(device="cuda")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in A.KERNELS}
+    atol = TOLERANCE["bfloat16"]["out"][0]
+    log(f"experiment (B, T, H, D) {tuple(res['shape'])} bf16, mean of {res['steps']} calls: "
+        f"fwd streaming (K1) {res['stream_ms']:.3f} ms, fwd one-pass (K5) "
+        f"{res['onepass_ms']:.3f} ms, max|err| {res['max_abs_err']:.3g} (atol {atol}); "
+        f"GELU (8, 1214, 3072) bf16: erf {res['gelu_erf_ms']:.4f} ms, tanh "
+        f"{res['gelu_tanh_ms']:.4f} ms; launches {launches}; on {card}")
+    if not (launches["flash_onepass"] > 0 and launches["flash_fwd"] > 0):
+        raise AssertionError(f"the experiment did not launch K5 and K1: {launches}")
+    if not res["max_abs_err"] <= atol:
+        raise AssertionError(f"one-pass vs streaming max|err| {res['max_abs_err']} > {atol}")
+    return launches
+
+
+# -----------------------------------------------------------------------------
+# 8. the vision path: run_vision with the full-width vit_finetune preset
+# -----------------------------------------------------------------------------
+
+
+def write_frame_cache(cache_dir: str, preset, subject: int = 1, trials: int = 40) -> None:
+    """A synthetic subject's frame cache where ``load_vision`` reads it:
+    uint8 (trials, 25, 56, 56, 3) face crops, classes in turn."""
+    import numpy as np
+
+    from eav_tpu_torch.train.pipeline import _cfg_hash
+
+    cfg = preset.vision
+    rng = np.random.default_rng(subject)
+    side = cfg.face_image_size
+    x = rng.integers(0, 256, size=(trials, cfg.frames_per_sample, side, side, 3), dtype=np.uint8)
+    y = (np.arange(trials) % 5).astype(np.int32)
+    np.savez(os.path.join(cache_dir, f"s{subject:02d}_vis_{_cfg_hash(cfg)}.npz"), x=x, y=y)
+
+
+def run_vision_path() -> None:
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import PhaseConfig, get_preset
+    from eav_tpu_torch.ops import attention as A
+    from eav_tpu_torch.train.pipeline import ModalityPipelines
+
+    base = get_preset("vit_finetune")
+    preset = base.replace(
+        split=dataclasses.replace(base.split, h_idx=6),  # 8 trials per class: 30 train, 10 test
+        finetune=dataclasses.replace(
+            base.finetune,
+            phases=(PhaseConfig(epochs=1, lr=5e-4, freeze=True),
+                    PhaseConfig(epochs=1, lr=5e-6, freeze=False)),
+        ),
+    )
+    with tempfile.TemporaryDirectory() as root:
+        cache, logits = os.path.join(root, "cache"), os.path.join(root, "logits")
+        os.makedirs(cache)
+        write_frame_cache(cache, preset)
+        pipes = ModalityPipelines(os.path.join(root, "EAV"), cache_dir=cache, logits_dir=logits,
+                                  presets={"vision": preset}, device="cuda")
+        A.reset_launches()
+        t0 = time.perf_counter()
+        res = pipes.run_vision(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}
+        test_arch = np.load(os.path.join(logits, "s01_vision_test.npy"))
+        train_arch = np.load(os.path.join(logits, "s01_vision_train.npy"))
+    hist = res.artifacts["history"]
+    m = res.metrics
+    log(f"run_vision (vit_finetune, ViT-base bf16, math attention, 1 frozen + 1 unfrozen "
+        f"epoch, 750 train / 250 test frames of 30 / 10 trials): {wall:.1f} s; losses "
+        f"{hist['loss'].tolist()}, trial accuracy {m['accuracy']}, fit {m['fit_seconds']} s, "
+        f"{m['samples_per_sec']} frames/s, load {m['load_seconds']} s; archives test "
+        f"{test_arch.shape}, train {train_arch.shape}; launches {launches}")
+    if not (np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2):
+        raise AssertionError(f"bad loss history {hist['loss']}")
+    if set(m) != METRICS_KEYS:
+        raise AssertionError(f"metrics keys {sorted(m)} != {sorted(METRICS_KEYS)}")
+    if test_arch.shape != (10, 5) or train_arch.shape != (30, 5) or not np.isfinite(test_arch).all():
+        raise AssertionError(f"archives not trial-voted: {test_arch.shape}, {train_arch.shape}")
+    if sum(map(sum, m["confusion"])) != 10:
+        raise AssertionError(f"the confusion matrix does not count 10 trials: {m['confusion']}")
 
 
 def main() -> int:
@@ -487,6 +631,14 @@ def main() -> int:
     launches = run_main_path()
     time_train_step(card)
     profile_train_step(card)
+    # each kernel's launches from its own path: K1-K3 run_audio's, K5 the experiment's
+    launches["flash_onepass"] = run_experiment(card)["flash_onepass"]
+    run_vision_path()
+    vit_step = "ViT-base, unfrozen, bs 128, uint8 56x56 frames resized in the model, bf16"
+    time_train_step(card, "vit_finetune", f"{vit_step}, math attention (the preset)")
+    profile_train_step(card, "vit_finetune", top=12)
+    # whether the flash kernels should serve T 197: the same step through K1-K3
+    time_train_step(card, "vit_finetune", f"{vit_step}, flash kernels", attn_impl="flash")
 
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():

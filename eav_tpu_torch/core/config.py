@@ -1,9 +1,10 @@
-"""Dataclass configs and the ``ast_finetune`` preset.
+"""Dataclass configs and the ``ast_finetune`` and ``vit_finetune`` presets.
 
-A copy of the parts of ``eav_tpu/core/config.py`` that the audio fine-tune
-needs: the same field names and defaults, without the fields of model
-families the port does not run yet. ``model_kwargs`` maps the presets' dtype
-names to torch dtypes.
+A copy of the parts of ``eav_tpu/core/config.py`` that the audio and vision
+fine-tunes need: the same field names and defaults, without the fields of
+model families the port does not run yet. ``VisionPreprocConfig`` is copied
+whole, so its hash (the vision cache key) equals the JAX package's.
+``model_kwargs`` maps the presets' dtype names to torch dtypes.
 """
 
 from __future__ import annotations
@@ -48,6 +49,28 @@ class AudioPreprocConfig:
 
 
 @dataclass(frozen=True)
+class VisionPreprocConfig:
+    """Vision ingest: .mp4 -> (400, 25, H, W, 3) uint8 frame stacks.
+
+    Mirrors reference `Dataload_vision.py:42-94`: Speaking clips only, every
+    6th frame of the first 600 (100 frames / 20 s clip), grouped 25 frames =
+    5 s per sample; face crop to 56x56 (``face_detection``), else resize to
+    ``image_size``. The MTCNN fields serve the face detector (ROADMAP slice 6).
+    """
+
+    frame_stride: int = 6
+    max_frames: int = 600
+    frames_per_sample: int = 25
+    image_size: int = 224
+    face_detection: bool = False
+    face_image_size: int = 56
+    face_prob_threshold: float = 0.3
+    mtcnn_thresholds: Tuple[float, float, float] = (0.6, 0.7, 0.7)
+    mtcnn_factor: float = 0.709
+    mtcnn_min_face_size: int = 20
+
+
+@dataclass(frozen=True)
 class PhaseConfig:
     """One phase of the freeze->unfreeze protocol (`Dataload_audio.py:113-114`)."""
 
@@ -69,6 +92,12 @@ class FinetuneConfig:
     phases: Tuple[PhaseConfig, ...]
     weight_decay: float = 1e-5
     eval_batch_size: Optional[int] = None
+    # Per-trial aggregation for per-frame models (`Transformer_Vision.py:170-188`):
+    # vote over this many consecutive test rows. None = per-sample scoring.
+    vote_group: Optional[int] = None
+    # 'mean' = mean-logit vote (`Transformer_Vision.py:178-180`);
+    # 'majority' = per-frame argmax + mode (the Keras video notebook).
+    vote_mode: str = "mean"
     seed: int = 0
     shuffle: bool = True
     cache_frozen_features: bool = True
@@ -86,6 +115,7 @@ class PresetConfig:
     split: SplitConfig
     finetune: FinetuneConfig
     audio: Optional[AudioPreprocConfig] = None
+    vision: Optional[VisionPreprocConfig] = None
 
     def replace(self, **kw) -> "PresetConfig":
         return dataclasses.replace(self, **kw)
@@ -113,6 +143,29 @@ def _ast_finetune() -> FinetuneConfig:
     )
 
 
+def _vit_finetune() -> FinetuneConfig:
+    # Reference `Dataload_vision.py:140-141`: bs 128, 10 epochs at 5e-4 frozen,
+    # then 5 at 5e-6 unfrozen; trial vote = mean logits over 25 frames
+    # (`Transformer_Vision.py:178-180`); torch's default weight decay 0.01
+    # (`Transformer_Vision.py:36`). Eval at twice the train batch. Raw uint8
+    # frames go to the device and the model resizes and normalizes them; bf16
+    # compute and residual stream; attention stays plain ('math'), as the JAX
+    # preset keeps XLA attention at 197 tokens.
+    return FinetuneConfig(
+        model="vit",
+        batch_size=128,
+        weight_decay=0.01,
+        phases=(
+            PhaseConfig(epochs=10, lr=5e-4, freeze=True),
+            PhaseConfig(epochs=5, lr=5e-6, freeze=False),
+        ),
+        eval_batch_size=256,
+        vote_group=25,
+        model_kwargs={"preprocess_uint8": True, "compute_dtype": "bfloat16",
+                      "stream_dtype": "bfloat16"},
+    )
+
+
 PRESETS: Dict[str, PresetConfig] = {
     "ast_finetune": PresetConfig(
         name="ast_finetune",
@@ -120,6 +173,13 @@ PRESETS: Dict[str, PresetConfig] = {
         split=SplitConfig(),
         audio=AudioPreprocConfig(),
         finetune=_ast_finetune(),
+    ),
+    "vit_finetune": PresetConfig(
+        name="vit_finetune",
+        description="Vision ViT fine-tune on face frames, per-trial mean-logit vote",
+        split=SplitConfig(),
+        vision=VisionPreprocConfig(face_detection=True),
+        finetune=_vit_finetune(),
     ),
 }
 

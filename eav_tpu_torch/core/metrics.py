@@ -1,11 +1,13 @@
 """Classification metrics (sklearn conventions), on tensors or arrays.
 
 Ports ``eav_tpu/core/metrics.py``: confusion matrix, accuracy, weighted F1
-(sklearn ``f1_score(average='weighted')`` with zero_division=0) and the
-summary row the pipelines write.
+(sklearn ``f1_score(average='weighted')`` with zero_division=0), the summary
+row the pipelines write, and the per-trial votes of the per-frame models.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -51,3 +53,25 @@ def classification_summary(y_true, y_pred, num_classes: int) -> dict:
         "weighted_f1": float(weighted_f1(y_true, y_pred, num_classes)),
         "confusion": confusion_matrix(y_true, y_pred, num_classes).tolist(),
     }
+
+
+def _trial_blocks(logits, group: int) -> torch.Tensor:
+    """(n, c) -> (n // group, group, c); a partial last trial is dropped."""
+    logits = torch.as_tensor(logits)
+    trials = logits.shape[0] // group
+    return logits[: trials * group].reshape(trials, group, logits.shape[1])
+
+
+def trial_vote(logits, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean logits over ``group`` consecutive rows, then argmax (reference
+    `Transformer_Vision.py:178-180`) -> (trial_logits, trial_pred)."""
+    tl = _trial_blocks(logits, group).mean(dim=1)
+    return tl, tl.argmax(dim=-1)
+
+
+def trial_majority_vote(logits, group: int, num_classes: int) -> torch.Tensor:
+    """Per-trial mode of the per-frame argmax (the Keras video notebook's
+    ``scipy.stats.mode``); ties go to the smallest class -> (trials,)."""
+    frame_pred = _trial_blocks(logits, group).argmax(dim=-1)
+    counts = torch.nn.functional.one_hot(frame_pred, num_classes).sum(dim=1)
+    return counts.argmax(dim=-1)  # the first maximal count: the smallest class

@@ -1,9 +1,13 @@
-// Flash attention for Hopper (sm_90a): forward (K1), dK/dV (K2) and dQ (K3).
+// Flash attention for Hopper (sm_90a): forward (K1), dK/dV (K2), dQ (K3) and
+// the one-pass forward (K5).
 //
-// These replace the three Pallas TPU kernels of eav_tpu/ops/pallas/attention.py:
-//   K1 eav_flash_fwd  <- _flash_kernel (attention.py:73)
-//   K2 eav_flash_dkv  <- _dkv_kernel   (attention.py:113)
-//   K3 eav_flash_dq   <- _dq_kernel    (attention.py:158)
+// These replace the three Pallas TPU kernels of eav_tpu/ops/pallas/attention.py
+// and the one of scripts/flash_onepass_experiment.py:
+//   K1 eav_flash_fwd     <- _flash_kernel   (attention.py:73)
+//   K2 eav_flash_dkv     <- _dkv_kernel     (attention.py:113)
+//   K3 eav_flash_dq      <- _dq_kernel      (attention.py:158)
+//   K5 eav_flash_onepass <- _onepass_kernel (flash_onepass_experiment.py:25),
+//      described at its kernels below.
 //
 // Operands are head-major (BH, T_pad, D), row-major and contiguous, in float32
 // or bfloat16. Keys at or beyond t_real are masked by adding -1e30 to their
@@ -64,13 +68,13 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// Rows row0 .. row0+BLOCK-1 of a (t_pad, D) matrix into shared memory with
+// Rows row0 .. row0+ROWS-1 of a (t_pad, D) matrix into shared memory with
 // row stride D + 1; rows at or past t_pad read as zero.
-template <int D>
+template <int D, int ROWS = BLOCK>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int row0, int t_pad) {
   constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < BLOCK * D; e += THREADS) {
+  for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
     const int r = e / D, c = e % D;
     const int row = row0 + r;
     dst[r * LD + c] = row < t_pad ? src[static_cast<size_t>(row) * D + c] : 0.f;
@@ -86,20 +90,21 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
-// acc[i][j] += sum_d A[ty+16i][d] * B[tx+16j][d] for two (BLOCK, D) tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
+// acc[i][j] += sum_d A[ty+16i][d] * B[tx+16j][d] for i < MI rows of A and
+// j < 4 rows of B, both row-major with stride D + 1.
+template <int D, int MI>
+__device__ __forceinline__ void tile_dot(float (&acc)[MI][4], const float* A,
                                          const float* B, int ty, int tx) {
   constexpr int LD = D + 1;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[MI], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < MI; ++i) a[i] = A[(ty + 16 * i) * LD + d];
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
@@ -437,13 +442,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Rows row0 .. row0+ROWS-1 of a (t_pad, D) bf16 matrix into shared memory,
-// row-major with stride LD, 16 bytes per thread and step; rows at or past
-// t_pad read as zero.
-template <int ROWS, int D, int LD>
+// row-major with stride LD, 16 bytes per thread and step, by a block of
+// NTHREADS threads; rows at or past t_pad read as zero.
+template <int ROWS, int D, int LD, int NTHREADS = MMA_THREADS>
 __device__ __forceinline__ void load_bf16(bf16* dst, const bf16* __restrict__ src, int row0,
                                           int t_pad) {
   constexpr int CHUNKS = D / 8;
-  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += MMA_THREADS) {
+  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += NTHREADS) {
     const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < t_pad)
@@ -781,6 +786,299 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv + base, dv_acc, k0 + 16 * w, t_pad, one);
 }
 
+// ===========================================================================
+// K5: the one-pass forward (eav_flash_onepass)
+// ===========================================================================
+//
+// The K1 forward with a single K block, so the softmax is plain: one row max,
+// one exp, one f32 sum of the unrounded P, no online rescaling. The TPU kernel
+// holds a head's whole (T_pad x T_pad) f32 score tile in VMEM; at T 1214 that
+// is 6.5 MB, far past the 227 KB of shared memory a Hopper block may have. So
+// a block here owns a stripe of OP_ROWS = 32 query rows and keeps the stripe's
+// whole score rows (32 x W f32, W = t_real rounded up to 64 keys: 156 KB at
+// T 1214) in dynamic shared memory, in three phases:
+//   1. S = scale Q K^T over 64-key tiles of K; keys >= t_real are set to -1e30;
+//   2. per row m = max S, P = exp(S - m) written over S (f32, unrounded),
+//      l = sum P, LSE = m + log max(l, 1e-30);
+//   3. O = (P V) / max(l, 1e-30) over 64-key tiles of V, P rounded to V's
+//      type first.
+// Key tiles wholly past t_real are skipped (their P would be exactly 0). The
+// stripe's rows are padded (by 8 floats for bf16, 16 for float32) so that the
+// fragment stores of phase 1 and loads of phase 3 are free of bank conflicts.
+// bf16 goes through mma.sync.m16n8k16 as K1 does, with K and V tiles
+// streamed through a cp.async ring; float32 through FMA from tiles loaded in
+// turn. 8 warps per block, one block per SM (the stripe takes most of its
+// shared memory).
+// What bounds it: the same 4 T^2 D BH FLOP as K1 (operations, on 60 MB of
+// operands at the AST shape); each block rereads its head's K and V from L2.
+// The stripe bounds T: the launcher refuses a T whose stripe does not fit
+// (the Python wrapper raises before that, from the same sizes).
+
+constexpr int OP_ROWS = 32;          // query rows per block
+constexpr int OP_KTILE = 64;         // keys per K or V tile
+constexpr int OP_THREADS = 256;      // 8 warps
+constexpr size_t SMEM_LIMIT = 232448;  // 227 KB: the most a block may have
+
+__device__ __host__ __forceinline__ int op_width(int t_real) {
+  return (t_real + OP_KTILE - 1) / OP_KTILE * OP_KTILE;
+}
+
+// Phase 2 on the (OP_ROWS, width) stripe S with row stride lds; each warp
+// owns OP_ROWS / 8 rows. P = exp(S - m) replaces S, max(l, 1e-30) goes to
+// lsum and the LSE of rows below t_pad to lse_bh.
+__device__ __forceinline__ void onepass_softmax(float* S, int lds, int width, float* lsum,
+                                                float* __restrict__ lse_bh, int q0,
+                                                int t_pad) {
+  constexpr int RPW = OP_ROWS / (OP_THREADS / 32);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = 0; i < RPW; ++i) {
+    const int r = w * RPW + i;
+    float* row = S + r * lds;
+    float m = NEG_INF;
+    for (int c = lane; c < width; c += 32) m = fmaxf(m, row[c]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    for (int c = lane; c < width; c += 32) {
+      const float p = expf(row[c] - m);
+      row[c] = p;
+      l += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      const float l_safe = fmaxf(l, 1e-30f);
+      lsum[r] = l_safe;
+      if (q0 + r < t_pad) lse_bh[q0 + r] = m + logf(l_safe);
+    }
+  }
+}
+
+// K5, float32. Block (32-row stripe, bh); thread (ty, tx) owns stripe rows
+// ty and ty+16, scores of keys tx+16j of each K tile, and output columns
+// tx+16c.
+template <int D>
+__global__ void __launch_bounds__(OP_THREADS)
+flash_onepass_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                  int t_pad, int t_real, float scale) {
+  constexpr int LD = D + 1, CJ = D / 16;
+  const int width = op_width(t_real), lds = width + 16, nk = width / OP_KTILE;
+  extern __shared__ float smem[];
+  float* S = smem;                   // [OP_ROWS][lds]
+  float* lsum = S + OP_ROWS * lds;   // [OP_ROWS]
+  float* Qs = lsum + OP_ROWS;        // [OP_ROWS][LD]
+  float* KV = Qs + OP_ROWS * LD;     // [OP_KTILE][LD]: a K tile, then a V tile
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * OP_ROWS;
+  const size_t base = static_cast<size_t>(bh) * t_pad * D;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  load_tile<D, OP_ROWS>(Qs, q + base, q0, t_pad);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * OP_KTILE;
+    __syncthreads();  // the previous K tile is consumed
+    load_tile<D>(KV, k + base, k0, t_pad);
+    __syncthreads();
+    float s[2][4] = {};
+    tile_dot<D>(s, Qs, KV, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        S[(ty + 16 * i) * lds + key] = key < t_real ? scale * s[i][j] : NEG_INF;
+      }
+  }
+  __syncthreads();
+  onepass_softmax(S, lds, width, lsum, lse + static_cast<size_t>(bh) * t_pad, q0, t_pad);
+
+  float acc[2][CJ] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * OP_KTILE;
+    __syncthreads();  // P is complete; the previous V tile is consumed
+    load_tile<D>(KV, v + base, k0, t_pad);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < OP_KTILE; ++kk) {
+      float pv[2], vv[CJ];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) pv[i] = S[(ty + 16 * i) * lds + k0 + kk];
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) vv[c] = KV[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < CJ; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= t_pad) continue;
+    const float l_safe = lsum[ty + 16 * i];
+#pragma unroll
+    for (int c = 0; c < CJ; ++c)
+      o[base + static_cast<size_t>(row) * D + tx + 16 * c] = acc[i][c] / l_safe;
+  }
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// with valid false the 16 bytes are zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The two B fragments of one 16-deep step of an mma whose B (keys x 8
+// columns) is stored row-major, keys as rows: rows p, p + LD, ... given by
+// lanes 0-15 (keys 0-15 of the step); .trans hands each thread its column.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(a));
+}
+
+constexpr int OP_STAGES = 3;  // K or V tiles in flight in the bf16 kernel's ring
+
+// Rows k0 .. k0+63 of a (t_pad, D) bf16 matrix into a ring slot (row-major,
+// stride LD) by cp.async; rows at or past t_pad are zero-filled.
+template <int D, int LD>
+__device__ __forceinline__ void issue_tile(bf16* dst, const bf16* __restrict__ src, int k0,
+                                           int t_pad) {
+  constexpr int CHUNKS = D / 8;
+  for (int e = threadIdx.x; e < OP_KTILE * CHUNKS; e += OP_THREADS) {
+    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
+    const bool ok = k0 + r < t_pad;
+    cp_async16(dst + r * LD + c, src + static_cast<size_t>(ok ? k0 + r : 0) * D + c, ok);
+  }
+  cp_async_commit();
+}
+
+// K5, bf16. Block (32-row stripe, bh); warp w works on the stripe's 16-row
+// half mt = w & 1: in phase 1 on keys 16 (w >> 1) .. +15 of each K tile, in
+// phase 3 on the output column tiles dt = (w >> 1) + 4i. K and V tiles stream
+// through a ring of OP_STAGES row-major slots filled by cp.async, so the next
+// tiles load while the current one is used (and V's first tiles load during
+// the softmax); the P V product reads V's B fragments with ldmatrix.trans.
+template <int D>
+__global__ void __launch_bounds__(OP_THREADS)
+flash_onepass_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                  int t_pad, int t_real, float scale) {
+  constexpr int LD = D + 8, DT = D / 8, DTW = (DT + 3) / 4;
+  constexpr int KSTEPS = OP_KTILE / 16, SLOT = OP_KTILE * LD;
+  const int width = op_width(t_real), lds = width + 8, nk = width / OP_KTILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* S = reinterpret_cast<float*>(smem_raw);      // [OP_ROWS][lds]
+  float* lsum = S + OP_ROWS * lds;                     // [OP_ROWS]
+  bf16* Qs = reinterpret_cast<bf16*>(lsum + OP_ROWS);  // [OP_ROWS][LD]
+  bf16* ring = Qs + OP_ROWS * LD;                      // [OP_STAGES][OP_KTILE][LD]
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * OP_ROWS;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int mt = w & 1, wq = w >> 1;
+  const size_t base = static_cast<size_t>(bh) * t_pad * D;
+
+  // ring prologue: the first OP_STAGES - 1 K tiles (an empty group past nk
+  // keeps the group count, and so the waits below, uniform)
+  for (int t = 0; t < OP_STAGES - 1; ++t) {
+    if (t < nk) issue_tile<D, LD>(ring + t * SLOT, k + base, t * OP_KTILE, t_pad);
+    else cp_async_commit();
+  }
+  load_bf16<OP_ROWS, D, LD, OP_THREADS>(Qs, q + base, q0, t_pad);
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+  load_a<D, LD>(qa, Qs, 16 * mt);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<OP_STAGES - 2>();  // this thread's part of tile kt has landed
+    __syncthreads();  // everyone's has, and every warp is done with tile kt - 1
+    const int next = kt + OP_STAGES - 1;  // into tile kt - 1's slot
+    if (next < nk) issue_tile<D, LD>(ring + (next % OP_STAGES) * SLOT, k + base, next * OP_KTILE, t_pad);
+    else cp_async_commit();
+    const int k0 = kt * OP_KTILE;
+    float s[2][4];
+    zero(s);
+    mma_abt<D, LD, 2>(s, qa, ring + (kt % OP_STAGES) * SLOT + 16 * wq * LD);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = k0 + 16 * wq + nt * 8 + 2 * c;
+        float2 val;
+        val.x = key < t_real ? scale * s[nt][2 * r] : NEG_INF;
+        val.y = key + 1 < t_real ? scale * s[nt][2 * r + 1] : NEG_INF;
+        *reinterpret_cast<float2*>(S + (16 * mt + g + 8 * r) * lds + key) = val;
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the scores are complete and the ring is free
+  for (int t = 0; t < OP_STAGES - 1; ++t) {  // V's first tiles load during the softmax
+    if (t < nk) issue_tile<D, LD>(ring + t * SLOT, v + base, t * OP_KTILE, t_pad);
+    else cp_async_commit();
+  }
+  onepass_softmax(S, lds, width, lsum, lse + static_cast<size_t>(bh) * t_pad, q0, t_pad);
+
+  float acc[DTW][4];
+  zero(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<OP_STAGES - 2>();
+    __syncthreads();  // V tile kt is in, P is complete, tile kt - 1 is consumed
+    const int next = kt + OP_STAGES - 1;
+    if (next < nk) issue_tile<D, LD>(ring + (next % OP_STAGES) * SLOT, v + base, next * OP_KTILE, t_pad);
+    else cp_async_commit();
+    const int k0 = kt * OP_KTILE;
+    const bf16* Vs = ring + (kt % OP_STAGES) * SLOT;  // [key][d]
+    // A fragments of P (rows 16 mt + g, + 8; this tile's keys), rounded to bf16
+    uint32_t pa[KSTEPS][4];
+    const float* prow = S + (16 * mt + g) * lds + k0 + 2 * c;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const float* p = prow + ks * 16;
+      const float2 a0 = *reinterpret_cast<const float2*>(p);
+      const float2 a1 = *reinterpret_cast<const float2*>(p + 8 * lds);
+      const float2 a2 = *reinterpret_cast<const float2*>(p + 8);
+      const float2 a3 = *reinterpret_cast<const float2*>(p + 8 * lds + 8);
+      pa[ks][0] = pack_bf16(a0.x, a0.y);
+      pa[ks][1] = pack_bf16(a1.x, a1.y);
+      pa[ks][2] = pack_bf16(a2.x, a2.y);
+      pa[ks][3] = pack_bf16(a3.x, a3.y);
+    }
+#pragma unroll
+    for (int i = 0; i < DTW; ++i) {
+      const int dt = wq + 4 * i;
+      if (dt >= DT) continue;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        uint32_t b0, b1;
+        ldmatrix_x2_trans(b0, b1, Vs + (ks * 16 + (lane & 15)) * LD + dt * 8);
+        mma_bf16(acc[i], pa[ks], b0, b1);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * mt + g + 8 * r;
+    if (row >= t_pad) continue;
+    const float l_safe = lsum[16 * mt + g + 8 * r];
+#pragma unroll
+    for (int i = 0; i < DTW; ++i) {
+      const int dt = wq + 4 * i;
+      if (dt >= DT) continue;
+      *reinterpret_cast<uint32_t*>(o + base + static_cast<size_t>(row) * D + dt * 8 + 2 * c) =
+          pack_bf16(acc[i][2 * r] / l_safe, acc[i][2 * r + 1] / l_safe);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
@@ -863,6 +1161,43 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                 static_cast<bf16*>(dq), t_pad, t_real, scale);
 }
 
+// Dynamic shared memory of K5 for a head dim and t_real (the sizes of the
+// kernels' carve-ups above; ops/attention.py computes the same).
+size_t onepass_smem(int dtype, int d, int t_real) {
+  const size_t width = op_width(t_real);
+  if (dtype == 0)
+    return sizeof(float) * (OP_ROWS * (width + 16) + OP_ROWS + OP_ROWS * (d + 1) +
+                            OP_KTILE * (d + 1));
+  return sizeof(float) * (OP_ROWS * (width + 8) + OP_ROWS) +
+         sizeof(bf16) * (OP_ROWS + OP_STAGES * OP_KTILE) * (d + 8);
+}
+
+// K5 on a (ceil(t_pad / 32), bh) grid; refuses a stripe past SMEM_LIMIT.
+template <int D>
+cudaError_t launch_onepass(int dtype, const void* q, const void* k, const void* v, void* o,
+                           void* lse, int bh, int t_pad, int t_real, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = onepass_smem(dtype, D, t_real);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  const dim3 grid((t_pad + OP_ROWS - 1) / OP_ROWS, bh);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = allow_smem(flash_onepass_f32<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_onepass_f32<D><<<grid, OP_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), t_pad,
+        t_real, scale);
+  } else {
+    err = allow_smem(flash_onepass_mma<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_onepass_mma<D><<<grid, OP_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), static_cast<float*>(lse), t_pad, t_real, scale);
+  }
+  return cudaGetLastError();
+}
+
 // launcher<D>(dtype, args...) for the runtime head dim; dtype code 0 is
 // float32, 1 bfloat16.
 #define EAV_DISPATCH(LAUNCH, dtype, d, ...)                         \
@@ -897,6 +1232,12 @@ cudaError_t dq(int dtype, int d, const void* q, const void* k, const void* v,
                stream);
 }
 
+cudaError_t onepass(int dtype, int d, const void* q, const void* k, const void* v, void* o,
+                    void* lse, int bh, int t_pad, int t_real, float scale,
+                    cudaStream_t stream) {
+  EAV_DISPATCH(launch_onepass, dtype, d, q, k, v, o, lse, bh, t_pad, t_real, scale, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -927,6 +1268,15 @@ int eav_flash_dq(int device, int dtype, int d, const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(dq(dtype, d, q, k, v, dout, lse, di, dqp, bh, t_pad, t_real,
                              scale, static_cast<cudaStream_t>(stream)));
+}
+
+int eav_flash_onepass(int device, int dtype, int d, const void* q, const void* k,
+                      const void* v, void* o, void* lse, int bh, int t_pad, int t_real,
+                      float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(onepass(dtype, d, q, k, v, o, lse, bh, t_pad, t_real, scale,
+                                  static_cast<cudaStream_t>(stream)));
 }
 
 const char* eav_cuda_error_string(int code) {

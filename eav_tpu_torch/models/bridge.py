@@ -1,4 +1,5 @@
-"""Weights across: the JAX package's Flax AST parameters -> the port's state_dict.
+"""Weights across: the JAX package's Flax AST and ViT parameters -> the port's
+state_dicts.
 
 The port keeps the Flax names, so the mapping is mechanical:
 
@@ -31,13 +32,13 @@ def _norm(sd: dict, prefix: str, tree: Mapping[str, Any]) -> None:
     sd[f"{prefix}.bias"] = _t(tree["bias"])
 
 
-def ast_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax AST params (nested mapping of arrays, e.g. ``variables['params']``
-    as numpy) -> a state_dict that ``AST.load_state_dict`` takes strictly."""
+def _backbone(params: Mapping[str, Any], tokens) -> Dict[str, torch.Tensor]:
+    """The patch conv, the learned tokens named ``tokens``, the encoder and
+    ``final_ln``: what AST and ViT share."""
     sd: Dict[str, torch.Tensor] = {}
     sd["patch_proj.weight"] = _t(np.asarray(params["patch_proj"]["kernel"]).transpose(3, 2, 0, 1))
     sd["patch_proj.bias"] = _t(params["patch_proj"]["bias"])
-    for name in ("cls_token", "dist_token", "pos_embed"):
+    for name in tokens:
         sd[name] = _t(params[name])
     for layer_name, layer in params["encoder"].items():
         pre = f"encoder.{layer_name}"
@@ -51,6 +52,21 @@ def ast_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         _dense(sd, f"{pre}.fc1", layer["fc1"])
         _dense(sd, f"{pre}.fc2", layer["fc2"])
     _norm(sd, "final_ln", params["final_ln"])
+    return sd
+
+
+def ast_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax AST params (nested mapping of arrays, e.g. ``variables['params']``
+    as numpy) -> a state_dict that ``AST.load_state_dict`` takes strictly."""
+    sd = _backbone(params, ("cls_token", "dist_token", "pos_embed"))
     _norm(sd, "classifier_ln", params["classifier_ln"])
+    _dense(sd, "classifier", params["classifier"])
+    return sd
+
+
+def vit_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ViT params -> a state_dict that ``ViT.load_state_dict`` takes
+    strictly (the patch kernel's input channels are RGB)."""
+    sd = _backbone(params, ("cls_token", "pos_embed"))
     _dense(sd, "classifier", params["classifier"])
     return sd

@@ -1,12 +1,16 @@
 """Flash attention: hand-written CUDA kernels for Hopper, with plain versions.
 
-Three kernels (``csrc/flash_attention.cu``) replace the three Pallas TPU
-kernels of the JAX package (``eav_tpu/ops/pallas/attention.py``):
+Four kernels (``csrc/flash_attention.cu``) replace the Pallas TPU kernels of
+the JAX package (``eav_tpu/ops/pallas/attention.py`` and
+``scripts/flash_onepass_experiment.py``):
 
 - K1 ``flash_fwd``: O = softmax(Q K^T scale + bias) V by the online-softmax
   recurrence, and the per-row LSE = m + log l that the backward reads;
 - K2 ``flash_dkv``: dK and dV, per K tile over all Q tiles;
-- K3 ``flash_dq``: dQ, per Q tile over all K tiles.
+- K3 ``flash_dq``: dQ, per Q tile over all K tiles;
+- K5 ``flash_onepass``: the K1 forward as one K block, a plain softmax over
+  each query row's whole score row (no online rescaling). Its stripe of
+  score rows lives in shared memory, which bounds T (``onepass_max_len``).
 
 Operands are head-major (BH, T, D) with ``t_real`` <= T real keys; the keys
 past ``t_real`` are masked with -1e30 (exactly zero probability). The kernels
@@ -40,7 +44,13 @@ _SIGNATURES = {
     "eav_flash_fwd": (_I, _I, _I) + (_VP,) * 5 + (_I, _I, _I, ctypes.c_float, _VP),
     "eav_flash_dkv": (_I, _I, _I) + (_VP,) * 8 + (_I, _I, _I, ctypes.c_float, _VP),
     "eav_flash_dq": (_I, _I, _I) + (_VP,) * 7 + (_I, _I, _I, ctypes.c_float, _VP),
+    "eav_flash_onepass": (_I, _I, _I) + (_VP,) * 5 + (_I, _I, _I, ctypes.c_float, _VP),
 }
+# K5's carve-up of dynamic shared memory (csrc ``onepass_smem``): a stripe of
+# 32 query rows by t_real rounded up to 64 keys of float32 scores, padded by 8
+# (bf16) or 16 (float32) floats a row, the rows' l, the Q stripe and the K or
+# V tiles (a ring of 3 in bf16, one in float32). A block may have at most 227 KB.
+ONEPASS_ROWS, ONEPASS_KTILE, ONEPASS_STAGES, SMEM_LIMIT = 32, 64, 3, 232448
 
 
 _lib = None
@@ -151,6 +161,19 @@ def _probs_and_dscores(q, k, v, do, lse, di, t_real):
     return p, ds
 
 
+def flash_onepass_plain(q, k, v, t_real: int):
+    """Plain K5, line by line the TPU body: (o in q's dtype, lse (BH, T)
+    float32). The keys past ``t_real`` are replaced by -1e30 (``where``)."""
+    s = _scale(q.shape[-1]) * torch.matmul(q.float(), k.float().transpose(1, 2))
+    keep = torch.arange(k.shape[1], device=q.device) < t_real
+    s = torch.where(keep, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
+    return o.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
+
+
 def flash_dkv_plain(q, k, v, do, lse, di, t_real: int):
     """Plain K2: (dk, dv) in k's and v's dtype."""
     p, ds = _probs_and_dscores(q, k, v, do, lse, di, t_real)
@@ -207,10 +230,49 @@ def flash_dq(q, k, v, do, lse, di, t_real: int):
     return dq
 
 
+def onepass_smem_bytes(dtype: torch.dtype, d: int, t_real: int) -> int:
+    """K5's dynamic shared memory for ``t_real`` keys of head dim ``d``."""
+    width = -(-t_real // ONEPASS_KTILE) * ONEPASS_KTILE
+    if dtype == torch.float32:
+        return 4 * (ONEPASS_ROWS * (width + 16) + ONEPASS_ROWS
+                    + (ONEPASS_ROWS + ONEPASS_KTILE) * (d + 1))
+    return (4 * (ONEPASS_ROWS * (width + 8) + ONEPASS_ROWS)
+            + 2 * (ONEPASS_ROWS + ONEPASS_STAGES * ONEPASS_KTILE) * (d + 8))
+
+
+def onepass_max_len(dtype: torch.dtype, d: int) -> int:
+    """The longest ``t_real`` whose K5 stripe fits a block (1536 keys for bf16
+    at head dim 64, 1600 for float32)."""
+    t = ONEPASS_KTILE
+    while onepass_smem_bytes(dtype, d, t + ONEPASS_KTILE) <= SMEM_LIMIT:
+        t += ONEPASS_KTILE
+    return t
+
+
+def flash_onepass(q, k, v, t_real: int):
+    """K5 (replaces ``_onepass_kernel``, scripts/flash_onepass_experiment.py:25).
+    q, k, v (BH, T, D) -> (o (BH, T, D), lse (BH, T) float32). On the card,
+    ``t_real`` beyond ``onepass_max_len`` raises: the stripe would not fit."""
+    bh, t_pad, d = _check_operands(q, k, v)
+    if _on_cpu(q, k, v):
+        return flash_onepass_plain(q, k, v, t_real)
+    if t_real > onepass_max_len(q.dtype, d):
+        raise ValueError(
+            f"flash_onepass: t_real={t_real} needs {onepass_smem_bytes(q.dtype, d, t_real)} "
+            f"bytes of shared memory for its score stripe, more than a block's {SMEM_LIMIT}; "
+            f"the kernel takes at most {onepass_max_len(q.dtype, d)} keys at this dtype and D")
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
+    _launch("eav_flash_onepass", q, (q, k, v, o, lse), bh, t_pad, t_real)
+    flash_onepass.launches += 1
+    return o, lse
+
+
 flash_fwd.launches = 0
 flash_dkv.launches = 0
 flash_dq.launches = 0
-KERNELS = (flash_fwd, flash_dkv, flash_dq)
+flash_onepass.launches = 0
+KERNELS = (flash_fwd, flash_dkv, flash_dq, flash_onepass)
 
 
 def reset_launches() -> None:
@@ -258,4 +320,12 @@ def flash_attention(q, k, v):
     """Multi-head attention in the (B, T, H, D) layout, scale 1/sqrt(D)."""
     b, t, h, d = q.shape
     o = FlashAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), t)
+    return o.reshape(b, h, t, d).permute(0, 2, 1, 3)
+
+
+def flash_onepass_attention(q, k, v):
+    """The one-pass forward in the (B, T, H, D) layout, scale 1/sqrt(D): the
+    counterpart of the experiment's ``onepass_forward``. Forward only."""
+    b, t, h, d = q.shape
+    o, _ = flash_onepass(_to_bh(q), _to_bh(k), _to_bh(v), t)
     return o.reshape(b, h, t, d).permute(0, 2, 1, 3)

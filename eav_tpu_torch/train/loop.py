@@ -70,7 +70,10 @@ class Trainer:
         )
 
     def _to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device, torch.float32)
+        """On the trainer's device: uint8 frames stay uint8 (a model with
+        ``preprocess_uint8`` converts them), everything else is float32."""
+        x = torch.as_tensor(x)
+        return x.to(self.device, x.dtype if x.dtype == torch.uint8 else torch.float32)
 
     @torch.no_grad()
     def _batched_apply(self, x: torch.Tensor, batch_size: Optional[int], mode: str) -> torch.Tensor:

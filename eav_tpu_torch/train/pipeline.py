@@ -1,10 +1,12 @@
-"""The per-(subject, modality) audio task: ingest -> EAV split -> fine-tune ->
-metrics, as ``eav_tpu/train/pipeline.py`` runs it for the ``ast_finetune``
-preset.
+"""The per-(subject, modality) tasks: ingest -> EAV split -> fine-tune ->
+metrics, as ``eav_tpu/train/pipeline.py`` runs them for the ``ast_finetune``
+(audio) and ``vit_finetune`` (vision) presets.
 
-Preprocessed fbanks are cached as ``.npz`` per (subject, config hash) when a
-cache directory is given; test logits are archived per subject when a logits
-directory is given. The metrics row has the JAX package's keys.
+Preprocessed fbanks and decoded frame stacks are cached as ``.npz`` per
+(subject, config hash) when a cache directory is given, under the JAX
+package's keys, and read back through ``fast_npz_load``; logits are archived
+per subject when a logits directory is given (the vision ones trial-voted).
+The metrics row has the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from eav_tpu_torch.core.config import (
     NUM_CLASSES,
     AudioPreprocConfig,
     PresetConfig,
+    VisionPreprocConfig,
     get_preset,
     model_kwargs,
 )
@@ -34,8 +37,8 @@ from eav_tpu_torch.train.loop import Trainer
 
 
 def default_presets() -> Dict[str, PresetConfig]:
-    """Modality key -> preset; the port runs the AST audio fine-tune so far."""
-    return {"audio": get_preset("ast_finetune")}
+    """Modality key -> preset, for the modalities the port runs so far."""
+    return {"audio": get_preset("ast_finetune"), "vision": get_preset("vit_finetune")}
 
 
 def _cfg_hash(cfg) -> str:
@@ -48,11 +51,14 @@ def _cached(cache_dir: Optional[str], key: str,
         return compute()
     path = os.path.join(cache_dir, key + ".npz")
     if os.path.exists(path):
-        with np.load(path) as z:
-            return z["x"], z["y"]
+        from eav_tpu_torch.ingest.npz import fast_npz_load
+
+        z = fast_npz_load(path)
+        return z["x"], z["y"]
     x, y = compute()
     os.makedirs(cache_dir, exist_ok=True)
-    tmp = path + f".{os.getpid()}.tmp.npz"  # write, then rename over the old file
+    # write, then rename over the old file: a reader's mmap keeps the old inode
+    tmp = path + f".{os.getpid()}.tmp.npz"
     try:
         np.savez(tmp, x=x, y=y)
         os.replace(tmp, path)
@@ -70,6 +76,10 @@ def build_model(preset: PresetConfig):
         from eav_tpu_torch.models.ast import AST
 
         return AST(**model_kwargs(preset))
+    if name == "vit":
+        from eav_tpu_torch.models.vit import ViT
+
+        return ViT(**model_kwargs(preset))
     raise KeyError(f"model {name!r} is not ported yet")
 
 
@@ -113,6 +123,18 @@ class ModalityPipelines:
 
         return _cached(self.cache_dir, f"s{subject:02d}_aud_fbank_{_cfg_hash(cfg)}", compute)
 
+    def load_vision(self, subject: int):
+        """(frames (trials, frames, H, W, 3) uint8, labels) of a subject's
+        Speaking clips."""
+        cfg = self.presets["vision"].vision or VisionPreprocConfig()
+
+        def compute():
+            from eav_tpu_torch.ingest.video import DataLoadVision
+
+            return DataLoadVision(subject, self.data_root, cfg, device=self.device).process()
+
+        return _cached(self.cache_dir, f"s{subject:02d}_vis_{_cfg_hash(cfg)}", compute)
+
     def _save_logits(self, subject: int, modality: str, split: str, logits: np.ndarray):
         if self.logits_dir is None:
             return
@@ -123,14 +145,26 @@ class ModalityPipelines:
             np.save(f, logits)
         os.replace(tmp, path)
 
-    def _finish(self, subject, modality, result, te_y,
+    def _finish(self, subject, modality, result, te_y, vote_group: Optional[int] = None,
                 fit_seconds: Optional[float] = None, n_train: Optional[int] = None,
                 load_seconds: Optional[float] = None,
                 archive_seconds: Optional[float] = None) -> TaskResult:
-        """The metrics row (the JAX package's keys) and the test-logit archive."""
+        """The metrics row (the JAX package's keys) and the test-logit
+        archive. With ``vote_group`` the test rows are frames: they are voted
+        per trial (the preset's ``vote_mode``) and the archive holds the
+        trial-mean logits."""
         logits = result.outputs_test
-        summary = M.classification_summary(np.asarray(te_y), np.argmax(logits, axis=-1), NUM_CLASSES)
-        self._save_logits(subject, modality, "test", logits)
+        if vote_group:
+            tl, pred = M.trial_vote(logits, vote_group)
+            if self.presets[modality].finetune.vote_mode == "majority":
+                pred = M.trial_majority_vote(logits, vote_group, NUM_CLASSES)
+            te_y_trial = np.asarray(te_y).reshape(-1, vote_group)[:, 0]
+            summary = M.classification_summary(te_y_trial, pred, NUM_CLASSES)
+            self._save_logits(subject, modality, "test", tl.numpy())
+        else:
+            pred = np.argmax(logits, axis=-1)
+            summary = M.classification_summary(np.asarray(te_y), pred, NUM_CLASSES)
+            self._save_logits(subject, modality, "test", logits)
         epochs = int(len(result.history["test_acc"]))
         metrics = {
             "accuracy": summary["accuracy"],
@@ -174,4 +208,45 @@ class ModalityPipelines:
         archive_s = time.perf_counter() - t0
         return self._finish(subject, key, result, data[3],
                             fit_seconds=fit_s, n_train=len(data[0]),
+                            load_seconds=load_s, archive_seconds=archive_s)
+
+    def _load_split_vision(self, subject: int):
+        """(tr_f, tr_fy, te_f, te_fy, frames per trial): the split by trials,
+        flattened to frames. uint8 frames go to the device once; the host
+        preprocessing runs only for a model without ``preprocess_uint8``."""
+        from eav_tpu_torch.ingest.vision import flatten_trials_to_frames, preprocess_frames
+
+        preset = self.presets["vision"]
+        x, y = self.load_vision(subject)  # (trials, frames, H, W, 3) uint8
+        tr_x, tr_y, te_x, te_y = eav_split(x, y, h_idx=preset.split.h_idx,
+                                           num_classes=preset.split.num_classes)
+        fps = x.shape[1]
+        tr_f, tr_fy = flatten_trials_to_frames(tr_x, tr_y)
+        te_f, te_fy = flatten_trials_to_frames(te_x, te_y)
+        kw = preset.finetune.model_kwargs or {}
+        if not kw.get("preprocess_uint8"):
+            size = kw.get("image_size", 224)
+            tr_f = preprocess_frames(tr_f, size=size, device=self.device)
+            te_f = preprocess_frames(te_f, size=size, device=self.device)
+        to_dev = lambda a: torch.as_tensor(a).to(self.device)  # noqa: E731
+        return to_dev(tr_f), tr_fy, to_dev(te_f), te_fy, fps
+
+    def run_vision(self, subject: int) -> TaskResult:
+        """The ViT fine-tune of one subject (the ``vision`` preset), scored
+        by the per-trial vote over its frames."""
+        key = "vision"
+        t0 = time.perf_counter()
+        tr_f, tr_fy, te_f, te_fy, fps = self._load_split_vision(subject)
+        load_s = time.perf_counter() - t0
+        trainer = self._trainer(key, self.presets[key])
+        t0 = time.perf_counter()
+        result = trainer.fit((tr_f, tr_fy, te_f, te_fy), seed=self.seed + subject)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if self.logits_dir is not None:
+            tr_logits = trainer.predict(tr_f)
+            self._save_logits(subject, key, "train", M.trial_vote(tr_logits, fps)[0].numpy())
+        archive_s = time.perf_counter() - t0
+        return self._finish(subject, key, result, te_fy, vote_group=fps,
+                            fit_seconds=fit_s, n_train=len(tr_f),
                             load_seconds=load_s, archive_seconds=archive_s)

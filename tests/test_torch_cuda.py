@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernels against their plain versions on the card.
+"""The CUDA flash-attention kernels (K1-K3 and the one-pass K5) against their
+plain versions on the card.
 
 These need a GPU with the CUDA toolkit (the kernels are built with nvcc at
 first use), so they carry the ``cuda`` marker and skip elsewhere. Run them on
@@ -77,4 +78,41 @@ def test_launches_are_counted(cuda):
     A.reset_launches()
     x = torch.randn(2, 64, 64, device=cuda, requires_grad=True)
     A.flash_attention_bh(x, x, x, 64).sum().backward()
-    assert [fn.launches for fn in A.KERNELS] == [1, 1, 1]
+    A.flash_onepass(x.detach(), x.detach(), x.detach(), 64)
+    assert [fn.launches for fn in A.KERNELS] == [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+@pytest.mark.parametrize("t_pad,t_real", [(1214, 1214), (197, 197), (256, 200), (65, 1), (33, 33)])
+def test_onepass_matches_plain(cuda, dtype, d, t_pad, t_real):
+    q, k, v, _ = _inputs(cuda, dtype, d, t_pad)
+    o, lse = A.flash_onepass(q, k, v, t_real)
+    o_p, lse_p = A.flash_onepass_plain(q, k, v, t_real)
+    torch.testing.assert_close(o.float(), o_p.float(), **_tol(dtype, 0))
+    torch.testing.assert_close(lse, lse_p, **_tol(dtype, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onepass_tolerance_rejects_a_mask_one_key_short(cuda, dtype):
+    q, k, v, _ = _inputs(cuda, dtype, 64, 1214)
+    o, lse = A.flash_onepass(q, k, v, 1214)
+    o_f, lse_f = A.flash_onepass_plain(q, k, v, 1213)
+    for i, (g, w) in enumerate(((o, o_f), (lse, lse_f))):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(g.float(), w.float(), **_tol(dtype, i))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onepass_refuses_a_stripe_past_shared_memory(cuda, dtype):
+    """The longest T whose stripe fits runs; one tile more raises before any
+    launch."""
+    t_max = A.onepass_max_len(dtype, 64)
+    q, k, v, _ = _inputs(cuda, dtype, 64, t_max + 64)
+    A.reset_launches()
+    o, _ = A.flash_onepass(q, k, v, t_max)
+    torch.testing.assert_close(o.float(), A.flash_onepass_plain(q, k, v, t_max)[0].float(),
+                               **_tol(dtype, 0))
+    with pytest.raises(ValueError, match="shared memory"):
+        A.flash_onepass(q, k, v, t_max + 1)
+    assert A.flash_onepass.launches == 1

@@ -1,7 +1,7 @@
 """The port's optimizer and trainer against the JAX package's: one AdamW step
 against ``adam_update`` with frozen leaves, the two-phase ``fit`` trajectory
-against ``JitTrainer`` on the same weights and data, and the frozen-feature
-cache against the full frozen phase."""
+against ``JitTrainer`` on the same weights and data (AST, and ViT on uint8
+frames), and the frozen-feature cache against the full frozen phase."""
 
 import dataclasses
 
@@ -14,11 +14,13 @@ from eav_tpu.core.config import FinetuneConfig as JaxFinetuneConfig
 from eav_tpu.core.config import PhaseConfig as JaxPhaseConfig
 from eav_tpu.core.optim import adam_update, init_adam_state
 from eav_tpu.models.ast import ast_tiny as jax_ast_tiny
+from eav_tpu.models.vit import vit_tiny as jax_vit_tiny
 from eav_tpu.train.loop import JitTrainer
 from eav_tpu_torch.core.config import FinetuneConfig, PhaseConfig
 from eav_tpu_torch.core.optim import make_optimizer, set_trainable
 from eav_tpu_torch.models.ast import ast_tiny
-from eav_tpu_torch.models.bridge import ast_params_from_jax
+from eav_tpu_torch.models.bridge import ast_params_from_jax, vit_params_from_jax
+from eav_tpu_torch.models.vit import vit_tiny
 from eav_tpu_torch.train.loop import Trainer, cross_entropy
 
 
@@ -158,3 +160,53 @@ def test_same_seed_same_fit_and_predict(rng):
     np.testing.assert_allclose(trainer.predict(data[2], a.params, batch_size=2),
                                a.outputs_test, rtol=1e-6, atol=1e-6)
 
+
+def _frames(rng, n_train=10, n_test=5, side=56):
+    """uint8 frames at 56x56 (resized to the model's 64 inside it)."""
+    return (
+        rng.integers(0, 256, size=(n_train, side, side, 3), dtype=np.uint8),
+        rng.integers(0, 5, size=n_train).astype(np.int32),
+        rng.integers(0, 256, size=(n_test, side, side, 3), dtype=np.uint8),
+        rng.integers(0, 5, size=n_test).astype(np.int32),
+    )
+
+
+def test_vit_two_phase_fit_on_uint8_frames_matches_jit_trainer(rng):
+    """ViT with ``preprocess_uint8``: the frames stay uint8 through batching,
+    the frozen-feature cache and eval; history and test logits agree."""
+    data = _frames(rng)
+    jcfg = JaxFinetuneConfig(
+        phases=(JaxPhaseConfig(2, 5e-3, True), JaxPhaseConfig(2, 5e-4, False)),
+        **dict(_JAX_CFG, model="vit"))
+    cfg = FinetuneConfig(phases=(PhaseConfig(2, 5e-3, True), PhaseConfig(2, 5e-4, False)),
+                         **dict(_CFG, model="vit"))
+    mj = jax_vit_tiny(layers=1, preprocess_uint8=True)
+    variables = mj.init(jax.random.PRNGKey(1), jnp.asarray(data[0][:1]), train=False)
+    params = jax.tree.map(np.asarray, variables["params"])
+    want = JitTrainer(mj, jcfg).fit(data, init_params=jax.tree.map(jnp.asarray, params))
+    trainer = Trainer(vit_tiny(layers=1, preprocess_uint8=True), cfg, device="cpu")
+    assert trainer._frozen_cache_ok()
+    assert trainer._to_device(data[0]).dtype == torch.uint8
+    got = trainer.fit(data, init_params=vit_params_from_jax(params))
+    for k in ("loss", "train_acc", "test_acc"):
+        assert got.history[k].shape == (4,)
+        np.testing.assert_allclose(got.history[k], want.history[k], rtol=1e-4, atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(got.outputs_test, want.outputs_test, rtol=1e-4, atol=1e-4)
+
+
+def test_vit_frozen_cache_matches_full_frozen_phase(rng):
+    data = _frames(rng, 9, 4)
+    cfg = FinetuneConfig(
+        phases=(PhaseConfig(2, 5e-3, True), PhaseConfig(1, 5e-4, False)),
+        **dict(_CFG, model="vit", shuffle=True))
+    on = Trainer(vit_tiny(layers=1, preprocess_uint8=True), cfg, device="cpu")
+    off = Trainer(vit_tiny(layers=1, preprocess_uint8=True),
+                  dataclasses.replace(cfg, cache_frozen_features=False), device="cpu")
+    assert on._frozen_cache_ok() and not off._frozen_cache_ok()
+    r_on, r_off = on.fit(data, seed=3), off.fit(data, seed=3)
+    for k in ("loss", "train_acc", "test_acc"):
+        np.testing.assert_allclose(r_on.history[k], r_off.history[k], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(r_on.outputs_test, r_off.outputs_test, rtol=1e-5, atol=1e-5)
+    for name in r_on.params:
+        np.testing.assert_allclose(r_on.params[name].numpy(), r_off.params[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
