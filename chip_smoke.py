@@ -6,14 +6,15 @@
 Phases, each of which fails the run on error:
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build: the package's CUDA source with nvcc;
+2. build: the package's CUDA source with nvcc, and each tensor-core
+   kernel's registers and spill bytes from ptxas's report;
 3. kernels: each flash-attention kernel (K1 forward, K2 dK/dV, K3 dQ, K5
    one-pass forward) against its plain PyTorch version at the AST shape
-   (B 8, H 12, D 64, T 1214) and at T 197, in bfloat16 and float32, K1-K3
-   also through the autograd function, and a planted fault (one key short in
-   the mask) that the same checks must reject; times of kernel, plain version
-   and the library's attention forward and backward (yardsticks only: the
-   port never calls them);
+   (B 8, H 12, D 64, T 1214), at T 197 and padded (T 1280 with 1214 real
+   keys), in bfloat16 and float32, K1-K3 also through the autograd function,
+   and a planted fault (one key short in the mask) that the same checks must
+   reject; times of kernel, plain version and the library's attention
+   forward and backward (yardsticks only: the port never calls them);
 4. model and frontend: full-width AST-base with flash attention against math
    attention on the same weights, resampling and fbank on the card against
    the CPU;
@@ -135,18 +136,18 @@ def kernel_inputs(t: int, dtype, seed: int):
     ]
 
 
-def check_kernels(t: int, dtype_name: str, seed: int) -> dict:
+def check_kernels(t_pad: int, t: int, dtype_name: str, seed: int) -> dict:
     """Each kernel and the autograd path against the plain versions on the
-    same inputs, then a planted fault: the plain versions with the last real
-    key masked must fail the same checks. Returns the max abs errors by
-    kernel."""
+    same (BH, t_pad, D) inputs with ``t`` real keys, then a planted fault:
+    the plain versions with the last real key masked must fail the same
+    checks. Returns the max abs errors by kernel."""
     import torch
 
     from eav_tpu_torch.ops import attention as A
 
     dtype = getattr(torch, dtype_name)
     tol, tol_lse = TOLERANCE[dtype_name]["out"], TOLERANCE[dtype_name]["lse"]
-    q, k, v, do = kernel_inputs(t, dtype, seed)
+    q, k, v, do = kernel_inputs(t_pad, dtype, seed)
     o_p, lse_p = A.flash_fwd_plain(q, k, v, t)
     o, lse = A.flash_fwd(q, k, v, t)
     torch.cuda.synchronize()
@@ -181,7 +182,7 @@ def check_kernels(t: int, dtype_name: str, seed: int) -> dict:
                                 (dq, dq_f, tol, "dQ"), (o1, o1_f, tol, "K5 O"),
                                 (lse1, lse1_f, tol_lse, "K5 LSE")):
         must_reject(got, want, *tl, f"{what} against a mask at t_real={t - 1}")
-    log(f"kernels T={t} {dtype_name}: max abs err "
+    log(f"kernels T={t_pad} (t_real {t}) {dtype_name}: max abs err "
         + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
         + f" (atol, rtol {tol}; LSE {tol_lse}); autograd ok; a mask at t_real={t - 1} "
         "fails O, LSE, dK, dV, dQ and K5's O and LSE")
@@ -612,12 +613,16 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build("flash_attention")
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    usage = build.resource_usage("flash_attention")
+    log("registers (spill store bytes) by kernel<D>: " + ", ".join(
+        f"{n} {regs} ({spill})" for n, (regs, spill) in sorted(usage.items()) if "mma" in n))
 
     errs = {}
-    for i, (t, dt) in enumerate(
-        [(T_AST, "bfloat16"), (T_AST, "float32"), (197, "bfloat16"), (197, "float32")]
+    for i, (t_pad, t, dt) in enumerate(
+        [(T_AST, T_AST, "bfloat16"), (T_AST, T_AST, "float32"), (197, 197, "bfloat16"),
+         (197, 197, "float32"), (1280, T_AST, "bfloat16"), (1280, T_AST, "float32")]
     ):
-        found = check_kernels(t, dt, seed=i)
+        found = check_kernels(t_pad, t, dt, seed=i)
         if i == 0:  # the main path's shape and type
             errs = found
     times = time_kernels(seed=10)

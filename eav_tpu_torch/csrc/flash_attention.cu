@@ -17,20 +17,30 @@
 // Q's type before dS.K and dS^T.Q.
 //
 // What bounds them on the H100: at the AST shape (BH 96, T 1214, D 64) each
-// kernel does 4-8 T^2 D BH = 3.6e10-7.2e10 FLOP on 60-90 MB of operands, so
-// the bound is arithmetic, far above the card's ~295 FLOP/byte ridge, and the
-// (T, T) scores never leave the SM. The TPU's sequential grid axis (the inner
-// loop over K or Q blocks) becomes a loop inside each block, so blocks are
-// independent and no atomics are needed. Two designs:
+// kernel does 4-8 T^2 D BH = 3.6e10-7.2e10 FLOP (K1 4, K2 8, K3 6) on 60-90
+// MB of operands, so the bound is operations, far above the card's ~295
+// FLOP/byte ridge, and the (T, T) scores never leave the SM. The TPU's
+// sequential grid axis (the inner loop over K or Q blocks) becomes a loop
+// inside each block, so blocks are independent and no atomics are needed
+// (dQ stays its own kernel, K3, so it is deterministic). Three designs:
 //
-// - bfloat16 (the training path): tensor-core mma.sync.m16n8k16 products,
+// - bfloat16 backward, K2 and K3 (the training path's largest cost):
+//   wgmma.mma_async products, FlashAttention-3 style, described at the
+//   kernels below. Against the mma.sync kernels they replace, which waited
+//   on synchronous loads behind barriers, stored operands transposed with
+//   2-byte scalar stores, fed mma.sync from 32-bit shared loads and (K2)
+//   stepped 32 queries at a time: tiles stream through a 3-stage cp.async
+//   ring while the current one is multiplied; they sit in wgmma's canonical
+//   swizzled layout, read through descriptors, and the transpose bit of the
+//   bf16 wgmma reads a row-major tile as the MN-major operand, so nothing is
+//   stored transposed; one warpgroup issues 64-row products; K2 steps 64
+//   queries (32 at D 128).
+// - bfloat16 forward, K1 and K5: tensor-core mma.sync.m16n8k16 products,
 //   FlashAttention-2 style. A block of 4 warps owns 64 rows, each warp 16;
 //   the scores a warp computes stay in its registers and are reused, rounded
-//   to bf16, as the A operand of the next product (P.V, dS.K, P^T.dO,
-//   dS^T.Q), so P and dS never touch shared memory. Operands whose product
-//   needs them column-major are stored transposed when their tile is loaded.
-//   Rows are padded by 8 elements, which makes the fragment loads free of
-//   bank conflicts. No cp.async/TMA pipelining and no wgmma yet.
+//   to bf16, as the A operand of P.V, so P never touches shared memory. K1
+//   stores V transposed when its tile is loaded; rows are padded by 8
+//   elements, which makes the fragment loads free of bank conflicts.
 // - float32: FMA from shared-memory tiles (tensor cores would mean TF32 and
 //   lose float32's precision). A 64x64 tile per block, 256 threads as a
 //   16x16 grid; thread (ty, tx) owns rows ty+16i and columns tx+16j.
@@ -406,7 +416,7 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ===========================================================================
-// bfloat16: tensor-core kernels (mma.sync.m16n8k16, f32 accumulate)
+// bfloat16 forward (K1 here, K5 below): mma.sync.m16n8k16, f32 accumulate
 // ===========================================================================
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + c, g = lane / 4, c = lane % 4;
@@ -419,8 +429,7 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 typedef __nv_bfloat16 bf16;
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
-constexpr int TILE = 64;          // rows of a Q or K/V tile (K2: keys per block)
-constexpr int K2_QTILE = 32;      // query rows per step of K2 (keeps its registers < 255)
+constexpr int TILE = 64;          // rows of a Q or K/V tile
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -540,6 +549,26 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][
   }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// with valid false the 16 bytes are zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+// The same for 4 bytes (one float).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 // K1, bf16. Block (64-row q tile, bh); warp w owns rows 16w..16w+15.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
@@ -630,156 +659,516 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(o + base, acc, q0 + 16 * w, t_pad, inv);
 }
 
-// K3, bf16. Block (64-row q tile, bh); warp w owns rows 16w..16w+15.
-//   S = Q K^T, dP = dO V^T, dS = P (dP - di), dQ += dS K (K transposed in smem)
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ di,
-             bf16* __restrict__ dq, int t_pad, int t_real, float scale) {
-  constexpr int LD = D + 8, LDT = TILE + 8, NT = TILE / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TILE][LD]
-  bf16* dOs = Qs + TILE * LD;                     // [TILE][LD]
-  bf16* Ks = dOs + TILE * LD;                     // [TILE][LD]
-  bf16* Vs = Ks + TILE * LD;                      // [TILE][LD]
-  bf16* Kt = Vs + TILE * LD;                      // [D][LDT], K transposed
+// ===========================================================================
+// bfloat16 backward (K2 dK/dV, K3 dQ): wgmma from swizzled shared memory
+// ===========================================================================
+//
+// One consumer warpgroup (4 warps, 128 threads) per block owns 64 rows: keys
+// in K2, queries in K3. Every product is a wgmma.mma_async m64nNk16 with f32
+// accumulators; the accumulator's per-warp layout is that of mma.m16n8k16's
+// C, stacked over the four warps (warp w holds rows 16w..16w+15), so the
+// scores rounded to bf16 are directly the register A operand of the next
+// product, as in the mma.sync kernels:
+//   K3: S = Q K^T, dP = dO V^T (A and B from shared memory, both K-major),
+//       dS = P (dP - di) in registers, dQ += dS K (A from registers, B = the
+//       K tile read MN-major through wgmma's transpose bit);
+//   K2: S^T = K Q^T, dP^T = V dO^T, P^T and dS^T in registers,
+//       dV += P^T dO and dK += dS^T Q (dO and Q tiles read MN-major).
+// No operand is stored transposed: one row-major tile serves both as a
+// K-major operand (its D columns as the contraction) and as an MN-major one
+// (its rows as the contraction).
+//
+// Tiles are in wgmma's canonical swizzled layout (the SwzTile note below)
+// and stream through a ring of cp.async stages, 16 bytes a copy, written
+// straight to their swizzled addresses: the next tiles land while the
+// current one is multiplied. Per step the warpgroup issues the two first
+// products as two commit groups, turns S into P as soon as the first group
+// is done (while dP still runs), starts the P product, turns dP into dS and
+// starts the dS product, then waits for both before the ring slot is reused.
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * TILE;
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int WG_ROWS = 64;      // rows a warpgroup owns (wgmma's M)
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (in 16-byte units) and the swizzle mode (1: 128 B, 2: 64 B, 3: 32 B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | mode << 62;
+}
+
+// An (R, D) bf16 tile in wgmma's canonical swizzled layout. A row's 2D bytes
+// are cut into column blocks of SW = min(2D, 128) bytes (one block below
+// D 128, two at D 128); each block holds all R rows at SW bytes a row, and
+// the 16-byte chunks of row r are permuted by the SW-byte swizzle, the
+// address bits [4, 4 + log2(SW / 16)) XORed with bits [7, ...) (so at SW 128
+// chunk c of row r sits at c ^ (r % 8)). Blocks start on 1024-byte
+// boundaries, so the pattern is that of the absolute address, as the
+// hardware applies it. The same tile is read
+// - K-major, the 16 columns 16ks.. of all rows as one k-step: start at that
+//   column's byte in its block, 8-row groups SBO = 8 SW apart;
+// - MN-major, the rows 16ks.. as one k-step and all D columns as N: start
+//   at row 16ks, column blocks LBO = R SW apart, 8-row groups SBO = 8 SW.
+template <int R, int D>
+struct SwzTile {
+  static constexpr int SW = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int BLOCK_BYTES = R * SW;
+  static constexpr int BYTES = R * D * 2;
+  static constexpr uint64_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static_assert(BLOCK_BYTES % 1024 == 0, "column blocks must keep 1024-byte alignment");
+
+  // byte offset of the 16-byte chunk ch (columns 8ch..8ch+7) of row r
+  static __device__ __forceinline__ int offset(int r, int ch) {
+    constexpr int CPR = SW / 16;  // chunks per row of a column block
+    const int o = r * SW + (ch % CPR) * 16;
+    return (ch / CPR) * BLOCK_BYTES + (o ^ ((o >> 3) & ((CPR - 1) << 4)));
+  }
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int ks) {
+    const int byte = ks * 32;
+    return smem_desc(base + (byte / SW) * BLOCK_BYTES + byte % SW, 16, 8 * SW, MODE);
+  }
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int ks) {
+    return smem_desc(base + ks * 16 * SW, BLOCK_BYTES, 8 * SW, MODE);
+  }
+};
+
+// Rows row0 .. row0+R-1 of a (t_pad, D) bf16 matrix into a SwzTile by
+// cp.async; rows at or past t_pad are zero-filled.
+template <int R, int D>
+__device__ __forceinline__ void issue_swz(unsigned char* dst, const bf16* __restrict__ src,
+                                          int row0, int t_pad) {
+  constexpr int CH = D / 8;
+  for (int e = threadIdx.x; e < R * CH; e += WG_THREADS) {
+    const int r = e / CH, ch = e % CH;
+    const bool ok = row0 + r < t_pad;
+    cp_async16(dst + SwzTile<R, D>::offset(r, ch),
+               src + static_cast<size_t>(ok ? row0 + r : 0) * D + ch * 8, ok);
+  }
+}
+
+// Entries row0 .. row0+R-1 of the (t_pad,) rows of lse and di by 4-byte
+// cp.async (a head's rows are only 4-byte aligned); past t_pad they are 0.
+template <int R>
+__device__ __forceinline__ void issue_stats(float* ls, float* dis, const float* __restrict__ lse,
+                                            const float* __restrict__ di, int row0, int t_pad) {
+  for (int e = threadIdx.x; e < 2 * R; e += WG_THREADS) {
+    const int i = e % R;
+    const bool ok = row0 + i < t_pad;
+    cp_async4((e < R ? ls : dis) + i, (e < R ? lse : di) + (ok ? row0 + i : 0), ok);
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes are generic-proxy writes; wgmma reads through the async
+// proxy, so each thread fences its landed copies before the block barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pins register accesses to their place among the wgmma fence / wait
+// instructions: the compiler may not move a read of an accumulator above
+// the wait that completes it, nor a write of an operand below the fence;
+// pinning a register A operand after the wait keeps its registers from
+// being reused while the product still reads them.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate (acc 0: D = A B, else
+// D += A B). ss: A and B by descriptor, both K-major. rs: A from registers
+// (this warp's 16-row m16n8k16 A fragment), B by descriptor, MN-major (the
+// transpose bit set).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void rs(float (&d)[2][4], const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[4][4], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[8][4], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void rs(float (&d)[16][4], const uint32_t (&a)[4], uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+// acc (64 x N) = A . B^T, A a (64, D) tile and B an (N, D) tile, both
+// contracted over D: S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T.
+template <int N, int D>
+__device__ __forceinline__ void wg_abt(float (&acc)[N / 8][4], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    Wgmma<N>::ss(acc, SwzTile<WG_ROWS, D>::kmajor(a, ks), SwzTile<N, D>::kmajor(b, ks), ks);
+}
+
+// acc (64 x D) += P . B, P (64 x 16 KS) in register A fragments and B an
+// (16 KS, D) tile contracted over its rows: dQ += dS K, dV += P^T dO,
+// dK += dS^T Q.
+template <int D, int KS>
+__device__ __forceinline__ void wg_av(float (&acc)[D / 8][4], const uint32_t (&pa)[KS][4],
+                                      uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    Wgmma<D>::rs(acc, pa[ks], SwzTile<16 * KS, D>::mnmajor(b, ks), 1);
+}
+
+// The accumulator of a (64 x 16 KS) product rounded to bf16 as the A
+// fragments of the next: 8-column tiles 2ks and 2ks + 1 make k-step ks.
+template <int KS>
+__device__ __forceinline__ void to_a(uint32_t (&a)[KS][4], const float (&x)[2 * KS][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    a[ks][0] = pack_bf16(x[2 * ks][0], x[2 * ks][1]);
+    a[ks][1] = pack_bf16(x[2 * ks][2], x[2 * ks][3]);
+    a[ks][2] = pack_bf16(x[2 * ks + 1][0], x[2 * ks + 1][1]);
+    a[ks][3] = pack_bf16(x[2 * ks + 1][2], x[2 * ks + 1][3]);
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K3: replaces _dq_kernel (eav_tpu/ops/pallas/attention.py:158). Block
+// (64-query tile, bh); the Q and dO tiles stay, K and V tiles stream over
+// the keys below t_real (tiles past it give dS = 0). 6 T^2 D BH FLOP, bound
+// by operations.
+// Key tile DQ_BK = 64: the S and dP accumulators (2 x 32 f32) beside dQ's
+// (D / 2) keep a thread at 110-128 registers (D 16-64). The ring has 3
+// stages (2 at D 128, where a stage is 32 KB): 65 KB with Q and dO at D 64,
+// so three blocks share an SM (two at D 128).
+// Grid: 64-query tiles, (ceil(t_pad / 64), BH) blocks. At the AST shape that
+// is 19 x 96 = 1824 blocks, 4.6 waves of 3 x 132; the last tile holds 62 of
+// 64 rows. 128-row tiles would halve the blocks but leave the tail tile half
+// empty (1280 rows for 1214) and fit one block per SM.
+constexpr int DQ_BK = 64;
+template <int D>
+struct DqPlan {
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int QBYTES = SwzTile<WG_ROWS, D>::BYTES, KBYTES = SwzTile<DQ_BK, D>::BYTES;
+  static constexpr size_t SMEM = 1024 + 2 * QBYTES + STAGES * 2 * KBYTES;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ di,
+               bf16* __restrict__ dq, int t_pad, int t_real, float scale) {
+  using P = DqPlan<D>;
+  constexpr int ST = P::STAGES, NT = DQ_BK / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* dOs = Qs + P::QBYTES;
+  unsigned char* ring = dOs + P::QBYTES;  // stage s: K tile, then V tile
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * WG_ROWS;
   const int w = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
+  const int nk = (t_real + DQ_BK - 1) / DQ_BK;
 
-  load_bf16<TILE, D, LD>(Qs, q + base, q0, t_pad);
-  load_bf16<TILE, D, LD>(dOs, dout + base, q0, t_pad);
-  __syncthreads();
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<D, LD>(qa, Qs, 16 * w);
-  load_a<D, LD>(da, dOs, 16 * w);
-  float row_lse[2], row_di[2];
+  issue_swz<WG_ROWS, D>(Qs, q + base, q0, t_pad);
+  issue_swz<WG_ROWS, D>(dOs, dout + base, q0, t_pad);
+  for (int t = 0; t < ST - 1; ++t) {  // group t: key tile t (group 0 also Q and dO)
+    if (t < nk) {
+      issue_swz<DQ_BK, D>(ring + t * 2 * P::KBYTES, k + base, t * DQ_BK, t_pad);
+      issue_swz<DQ_BK, D>(ring + t * 2 * P::KBYTES + P::KBYTES, v + base, t * DQ_BK, t_pad);
+    }
+    cp_async_commit();
+  }
+  // this thread's rows: 16w + g and 16w + g + 8
+  float lse2[2], di_row[2];
   bool valid[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + 16 * w + g + 8 * r;
     valid[r] = row < t_pad;
     const size_t at = static_cast<size_t>(bh) * t_pad + (valid[r] ? row : 0);
-    row_lse[r] = lse[at];
-    row_di[r] = di[at];
+    lse2[r] = lse[at] * LOG2E;
+    di_row[r] = di[at];
   }
+  const float scale2 = scale * LOG2E;
+  const uint32_t q_sm = smem_u32(Qs), do_sm = smem_u32(dOs);
 
-  float acc[DT][4];
+  float acc[D / 8][4];
   zero(acc);
-  const int nk = (t_real + TILE - 1) / TILE;  // later tiles: dS = 0
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_bf16<TILE, D, LD>(Ks, k + base, k0, t_pad);
-    load_bf16<TILE, D, LD>(Vs, v + base, k0, t_pad);
-    load_bf16_t<TILE, D, LDT>(Kt, k + base, k0, t_pad);
-    __syncthreads();
+    cp_async_wait<ST - 2>();  // this thread's copies of tile kt have landed
+    fence_async_smem();
+    __syncthreads();  // everyone's have, and tile kt - 1's slot is free
+    const int next = kt + ST - 1;
+    if (next < nk) {
+      unsigned char* slot = ring + (next % ST) * 2 * P::KBYTES;
+      issue_swz<DQ_BK, D>(slot, k + base, next * DQ_BK, t_pad);
+      issue_swz<DQ_BK, D>(slot + P::KBYTES, v + base, next * DQ_BK, t_pad);
+    }
+    cp_async_commit();
+    const int k0 = kt * DQ_BK;
+    const uint32_t k_sm = smem_u32(ring + (kt % ST) * 2 * P::KBYTES), v_sm = k_sm + P::KBYTES;
 
     float s[NT][4], dp[NT][4];
-    zero(s);
-    zero(dp);
-    mma_abt<D, LD, NT>(s, qa, Ks);
-    mma_abt<D, LD, NT>(dp, da, Vs);
-    uint32_t dsa[NT / 2][4];
+    wgmma_fence();
+    wg_abt<DQ_BK, D>(s, q_sm, k_sm);
+    wgmma_commit();
+    wg_abt<DQ_BK, D>(dp, do_sm, v_sm);
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(s);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float ds[4];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1, key = k0 + nt * 8 + 2 * c + (i & 1);
-        const float p = valid[r] ? expf(scale * s[nt][i] + (key < t_real ? 0.f : NEG_INF) - row_lse[r]) : 0.f;
-        ds[i] = p * (dp[nt][i] - row_di[r]);
+        const int r = i >> 1, key = k0 + 8 * j + 2 * c + (i & 1);
+        s[j][i] = valid[r] && key < t_real ? exp2f(scale2 * s[j][i] - lse2[r]) : 0.f;
       }
-      dsa[nt / 2][2 * (nt % 2)] = pack_bf16(ds[0], ds[1]);  // dS rounded to Q's type
-      dsa[nt / 2][2 * (nt % 2) + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    mma_av<D, LDT, NT / 2>(acc, dsa, Kt);
+    wgmma_wait<0>();
+    pin(dp);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dp[j][i] = s[j][i] * (dp[j][i] - di_row[i >> 1]);
+    uint32_t dsa[NT / 2][4];
+    to_a(dsa, dp);  // dS rounded to Q's type
+    pin(dsa);
+    pin(acc);
+    wgmma_fence();
+    wg_av<D, NT / 2>(acc, dsa, k_sm);
+    wgmma_commit();
+    wgmma_wait<0>();  // the slot is reread by the next fill
+    pin(acc);
+    pin(dsa);
   }
   const float mul[2] = {scale, scale};
   store_rows<D>(dq + base, acc, q0 + 16 * w, t_pad, mul);
 }
 
-// K2, bf16. Block (64-key tile, bh); warp w owns keys 16w..16w+15 and works
-// in the transposed orientation, keys x queries, over 32-query steps:
-//   S^T = K Q^T, P^T = exp(S^T - lse), dV += P^T dO, dP^T = V dO^T,
-//   dS^T = P^T (dP^T - di), dK += dS^T Q (dO and Q transposed in smem)
+// K2: replaces _dkv_kernel (eav_tpu/ops/pallas/attention.py:113). Block
+// (64-key tile, bh); the K and V tiles stay, Q, dO, lse and di stream over
+// every query step up to t_pad. 8 T^2 D BH FLOP, bound by operations.
+// Query step 64 below D 128: S^T and dP^T (2 x 32 f32) beside dK and dV
+// (2 x D / 2) take 165 registers a thread at D 64. At D 128 dK and dV alone
+// take 128 registers, so the step is 32 queries (209 registers). The ring
+// holds 3 stages of (Q, dO, lse, di): 67.5 KB with K and V at D 64, so three
+// blocks share an SM (two at D 128, 83 KB and 209 registers).
+// Grid: 64-key tiles, the same 1824 blocks as K3 at the AST shape, for the
+// same reason; a block's query loop runs over all of t_pad in 64-query steps.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ di,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int t_pad, int t_real,
-              float scale) {
-  constexpr int LD = D + 8, BQ = K2_QTILE, LDT = BQ + 8, NT = BQ / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [TILE][LD]
-  bf16* Vs = Ks + TILE * LD;                      // [TILE][LD]
-  bf16* Qs = Vs + TILE * LD;                      // [BQ][LD]
-  bf16* dOs = Qs + BQ * LD;                       // [BQ][LD]
-  bf16* Qt = dOs + BQ * LD;                       // [D][LDT]
-  bf16* dOt = Qt + D * LDT;                       // [D][LDT]
-  float* Ls = reinterpret_cast<float*>(dOt + D * LDT);  // [BQ]
-  float* Dis = Ls + BQ;                                 // [BQ]
+struct DkvPlan {
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int STAGES = 3;
+  static constexpr int KBYTES = SwzTile<WG_ROWS, D>::BYTES, QBYTES = SwzTile<BQ, D>::BYTES;
+  static constexpr size_t SMEM =
+      1024 + 2 * KBYTES + STAGES * 2 * QBYTES + STAGES * 2 * BQ * sizeof(float);
+};
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * TILE;
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ di,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int t_pad, int t_real,
+                float scale) {
+  using P = DkvPlan<D>;
+  constexpr int BQ = P::BQ, ST = P::STAGES, NT = BQ / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + P::KBYTES;
+  unsigned char* ring = Vs + P::KBYTES;  // stage s: Q tile, then dO tile
+  float* stats = reinterpret_cast<float*>(ring + ST * 2 * P::QBYTES);  // stage s: lse, di
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * WG_ROWS;
   const int w = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
   const float* lse_bh = lse + static_cast<size_t>(bh) * t_pad;
   const float* di_bh = di + static_cast<size_t>(bh) * t_pad;
+  const int nq = (t_pad + BQ - 1) / BQ;
 
-  load_bf16<TILE, D, LD>(Ks, k + base, k0, t_pad);
-  load_bf16<TILE, D, LD>(Vs, v + base, k0, t_pad);
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D, LD>(ka, Ks, 16 * w);
-  load_a<D, LD>(va, Vs, 16 * w);
-  float bias[2];
+  issue_swz<WG_ROWS, D>(Ks, k + base, k0, t_pad);
+  issue_swz<WG_ROWS, D>(Vs, v + base, k0, t_pad);
+  for (int t = 0; t < ST - 1; ++t) {  // group t: query step t (group 0 also K and V)
+    if (t < nq) {
+      issue_swz<BQ, D>(ring + t * 2 * P::QBYTES, q + base, t * BQ, t_pad);
+      issue_swz<BQ, D>(ring + t * 2 * P::QBYTES + P::QBYTES, dout + base, t * BQ, t_pad);
+      issue_stats<BQ>(stats + t * 2 * BQ, stats + t * 2 * BQ + BQ, lse_bh, di_bh, t * BQ, t_pad);
+    }
+    cp_async_commit();
+  }
+  // this thread's keys: 16w + g and 16w + g + 8; keys at or past t_real get P = 0
+  bool key_ok[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) bias[r] = (k0 + 16 * w + g + 8 * r < t_real) ? 0.f : NEG_INF;
+  for (int r = 0; r < 2; ++r) key_ok[r] = k0 + 16 * w + g + 8 * r < t_real;
+  const float scale2 = scale * LOG2E;
+  const uint32_t k_sm = smem_u32(Ks), v_sm = smem_u32(Vs);
 
-  float dk_acc[DT][4], dv_acc[DT][4];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero(dk_acc);
   zero(dv_acc);
-  const int nq = (t_pad + BQ - 1) / BQ;
   for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
+    cp_async_wait<ST - 2>();
+    fence_async_smem();
     __syncthreads();
-    load_bf16<BQ, D, LD>(Qs, q + base, q0, t_pad);
-    load_bf16<BQ, D, LD>(dOs, dout + base, q0, t_pad);
-    load_bf16_t<BQ, D, LDT>(Qt, q + base, q0, t_pad);
-    load_bf16_t<BQ, D, LDT>(dOt, dout + base, q0, t_pad);
-    for (int i = threadIdx.x; i < BQ; i += MMA_THREADS) {
-      const bool ok = q0 + i < t_pad;
-      Ls[i] = ok ? lse_bh[q0 + i] : 0.f;
-      Dis[i] = ok ? di_bh[q0 + i] : 0.f;
+    const int next = qt + ST - 1;
+    if (next < nq) {
+      const int s = next % ST;
+      issue_swz<BQ, D>(ring + s * 2 * P::QBYTES, q + base, next * BQ, t_pad);
+      issue_swz<BQ, D>(ring + s * 2 * P::QBYTES + P::QBYTES, dout + base, next * BQ, t_pad);
+      issue_stats<BQ>(stats + s * 2 * BQ, stats + s * 2 * BQ + BQ, lse_bh, di_bh, next * BQ,
+                      t_pad);
     }
-    __syncthreads();
+    cp_async_commit();
+    const int q0 = qt * BQ, slot = qt % ST;
+    const uint32_t q_sm = smem_u32(ring + slot * 2 * P::QBYTES), do_sm = q_sm + P::QBYTES;
+    const float* Ls = stats + slot * 2 * BQ;
+    const float* Dis = Ls + BQ;
 
     float st[NT][4], dpt[NT][4];
-    zero(st);
-    zero(dpt);
-    mma_abt<D, LD, NT>(st, ka, Qs);
-    mma_abt<D, LD, NT>(dpt, va, dOs);
-    uint32_t pa[NT / 2][4], dsa[NT / 2][4];
+    wgmma_fence();
+    wg_abt<BQ, D>(st, k_sm, q_sm);
+    wgmma_commit();
+    wg_abt<BQ, D>(dpt, v_sm, do_sm);
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(st);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float p[4], ds[4];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + 2 * c + (i & 1);  // query within the step
-        p[i] = q0 + col < t_pad ? expf(scale * st[nt][i] + bias[i >> 1] - Ls[col]) : 0.f;
-        ds[i] = p[i] * (dpt[nt][i] - Dis[col]);
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * c + e;  // query within the step
+        const bool q_ok = q0 + col < t_pad;
+        const float l2 = Ls[col] * LOG2E;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          st[j][2 * r + e] = q_ok && key_ok[r] ? exp2f(scale2 * st[j][2 * r + e] - l2) : 0.f;
       }
-      pa[nt / 2][2 * (nt % 2)] = pack_bf16(p[0], p[1]);  // P rounded to dO's type
-      pa[nt / 2][2 * (nt % 2) + 1] = pack_bf16(p[2], p[3]);
-      dsa[nt / 2][2 * (nt % 2)] = pack_bf16(ds[0], ds[1]);  // dS rounded to Q's type
-      dsa[nt / 2][2 * (nt % 2) + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    mma_av<D, LDT, NT / 2>(dv_acc, pa, dOt);
-    mma_av<D, LDT, NT / 2>(dk_acc, dsa, Qt);
+    uint32_t pa[NT / 2][4];
+    to_a(pa, st);  // P rounded to dO's type
+    pin(pa);
+    pin(dv_acc);
+    wgmma_fence();
+    wg_av<D, NT / 2>(dv_acc, pa, do_sm);
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done (groups complete in order); dV runs on
+    pin(dpt);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d_i = Dis[8 * j + 2 * c + e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          dpt[j][2 * r + e] = st[j][2 * r + e] * (dpt[j][2 * r + e] - d_i);
+      }
+    uint32_t dsa[NT / 2][4];
+    to_a(dsa, dpt);  // dS rounded to Q's type
+    pin(dsa);
+    pin(dk_acc);
+    wgmma_fence();
+    wg_av<D, NT / 2>(dk_acc, dsa, q_sm);
+    wgmma_commit();
+    wgmma_wait<0>();  // the slot is reread by the next fill
+    pin(dv_acc);
+    pin(dk_acc);
+    pin(pa);
+    pin(dsa);
   }
   const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
   store_rows<D>(dk + base, dk_acc, k0 + 16 * w, t_pad, mul);
@@ -923,27 +1312,13 @@ flash_onepass_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// 16 bytes from global to shared memory without passing through registers;
-// with valid false the 16 bytes are zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The two B fragments of one 16-deep step of an mma whose B (keys x 8
 // columns) is stored row-major, keys as rows: rows p, p + LD, ... given by
 // lanes 0-15 (keys 0-15 of the step); .trans hands each thread its column.
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(b0), "=r"(b1)
-               : "r"(a));
+               : "r"(smem_u32(p)));
 }
 
 constexpr int OP_STAGES = 3;  // K or V tiles in flight in the bf16 kernel's ring
@@ -1134,10 +1509,8 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v,
                   stream, static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dout), l, dI,
                   static_cast<float*>(dk), static_cast<float*>(dv), t_pad, t_real, scale);
-  return launch(flash_dkv_mma<D>, MMA_THREADS,
-                (2 * bf16_tile(TILE, D) + 2 * bf16_tile(K2_QTILE, D) +
-                 2 * bf16_tile(D, K2_QTILE)) * sizeof(bf16) + 2 * K2_QTILE * sizeof(float),
-                bh, t_pad, stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+  return launch(flash_dkv_wgmma<D>, WG_THREADS, DkvPlan<D>::SMEM, bh, t_pad, stream,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dI,
                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_pad, t_real, scale);
 }
@@ -1154,9 +1527,8 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                   stream, static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dout), l, dI,
                   static_cast<float*>(dq), t_pad, t_real, scale);
-  return launch(flash_dq_mma<D>, MMA_THREADS,
-                (4 * bf16_tile(TILE, D) + bf16_tile(D, TILE)) * sizeof(bf16), bh, t_pad,
-                stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+  return launch(flash_dq_wgmma<D>, WG_THREADS, DqPlan<D>::SMEM, bh, t_pad, stream,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dI,
                 static_cast<bf16*>(dq), t_pad, t_real, scale);
 }

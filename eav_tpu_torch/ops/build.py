@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
 ``_build/lib<name>-<hash>.so``, where the hash covers the source and the
-compiler flags: an edited source builds anew, an unchanged one is reused. The
-build needs ``nvcc`` (from ``CUDA_HOME`` as PyTorch finds it) and targets
-Hopper (``sm_90a``). Nothing here runs at import time.
+compiler flags: an edited source builds anew, an unchanged one is reused.
+ptxas's report of each kernel's registers and spills is kept beside it as
+``lib<name>-<hash>.log`` (``resource_usage`` reads it). The build needs
+``nvcc`` (from ``CUDA_HOME`` as PyTorch finds it) and targets Hopper
+(``sm_90a``). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,16 +14,17 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -55,8 +58,26 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc {name}.cu failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, path)
     return path
+
+
+def resource_usage(name: str) -> Dict[str, Tuple[int, int]]:
+    """``{"kernel<D>": (registers, spill store bytes)}`` of the built
+    ``csrc/<name>.cu`` from ptxas's report (building it first if needed)."""
+    report = build(name).with_suffix(".log").read_text()
+    usage, kernel, spills = {}, None, 0
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?\d(flash_\w+?)ILi(\d+)E", line)
+        if entry:
+            kernel = f"{entry.group(1)}<{entry.group(2)}>"
+        elif kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
+            spills = int(m.group(1))
+        elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+            usage[kernel] = (int(m.group(1)), spills)
+            kernel, spills = None, 0
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -115,3 +115,21 @@ def test_wrappers_refuse_other_devices_and_bad_operands():
         A.flash_fwd(x, x, x, 64)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         A.flash_fwd(*(torch.zeros(2, 64, 16, dtype=torch.float16),) * 3, 64)
+
+
+def test_resource_usage_reads_the_ptxas_report(tmp_path, monkeypatch):
+    """The build keeps ptxas's report beside the library; resource_usage
+    reads each kernel's registers and spill bytes from it, by name and D."""
+    from eav_tpu_torch.ops import build
+
+    entry = ("ptxas info    : Compiling entry function "
+             "'_ZN51_GLOBAL__N__2512834a_18_flash_attention_cu_a54ae1a3{n}{name}ILi{d}EEEvPK' for 'sm_90a'\n"
+             "ptxas info    : Function properties for _ZN...\n"
+             "    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+             "ptxas info    : Used {regs} registers, used 1 barriers\n")
+    (tmp_path / "libx.log").write_text(
+        entry.format(n=15, name="flash_dkv_wgmma", d=64, spill=0, regs=165)
+        + entry.format(n=13, name="flash_fwd_mma", d=128, spill=28, regs=168))
+    monkeypatch.setattr(build, "build", lambda name: tmp_path / "libx.so")
+    assert build.resource_usage("x") == {"flash_dkv_wgmma<64>": (165, 0),
+                                         "flash_fwd_mma<128>": (168, 28)}

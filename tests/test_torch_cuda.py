@@ -53,7 +53,8 @@ def _inputs(cuda, dtype, d, t_pad):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", A.HEAD_DIMS)
-@pytest.mark.parametrize("t_pad,t_real", [(197, 197), (256, 200), (65, 1)])
+@pytest.mark.parametrize("t_pad,t_real", [(197, 197), (256, 200), (65, 1), (1214, 1214),
+                                           (1280, 1214), (300, 300)])
 def test_kernels_match_plain(cuda, dtype, d, t_pad, t_real):
     q, k, v, do = _inputs(cuda, dtype, d, t_pad)
     got = _outputs(q, k, v, do, t_real, plain=False)
