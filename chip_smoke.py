@@ -14,7 +14,10 @@ Phases, each of which fails the run on error:
    keys), in bfloat16 and float32, K1-K3 also through the autograd function,
    and a planted fault (one key short in the mask) that the same checks must
    reject; times of kernel, plain version and the library's attention
-   forward and backward (yardsticks only: the port never calls them);
+   forward and backward (yardsticks only: the port never calls them), each
+   kernel and library call timed twice: one call between two CUDA events
+   (``ms``, host work before the launch included) and a run of 20
+   back-to-back calls (``ms_run``, the device's time a call);
 4. model and frontend: full-width AST-base with flash attention against math
    attention on the same weights, resampling and fbank on the card against
    the CPU;
@@ -87,6 +90,28 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_run(fn, calls: int = 20, reps: int = 5, warmup: int = 2) -> float:
+    """Milliseconds a call of ``fn`` over a run of ``calls`` back-to-back
+    calls between two CUDA events, median of ``reps`` runs: the launches
+    queue ahead of the device, so the host's work before each launch hides
+    behind the previous call and the reading is the device's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -190,8 +215,9 @@ def check_kernels(t_pad: int, t: int, dtype_name: str, seed: int) -> dict:
 
 
 def time_kernels(seed: int) -> dict:
-    """Times at the main path's shape and type (bf16, T 1214): kernel, plain
-    version, and SDPA where one call computes the same function."""
+    """Times at the main path's shape and type (bf16, T 1214): kernel (one
+    call, and a call in a run of 20), plain version, and the library call
+    that computes the same function (one call, and in a run of 20)."""
     import torch
     import torch.nn.functional as F
 
@@ -201,19 +227,24 @@ def time_kernels(seed: int) -> dict:
     q, k, v, do = kernel_inputs(t, torch.bfloat16, seed)
     o, lse = A.flash_fwd(q, k, v, t)
     di = (do.float() * o.float()).sum(-1)
-    times = {
-        "flash_fwd": (cuda_ms(lambda: A.flash_fwd(q, k, v, t)),
-                      cuda_ms(lambda: A.flash_fwd_plain(q, k, v, t))),
-        "flash_dkv": (cuda_ms(lambda: A.flash_dkv(q, k, v, do, lse, di, t)),
-                      cuda_ms(lambda: A.flash_dkv_plain(q, k, v, do, lse, di, t))),
-        "flash_dq": (cuda_ms(lambda: A.flash_dq(q, k, v, do, lse, di, t)),
-                     cuda_ms(lambda: A.flash_dq_plain(q, k, v, do, lse, di, t))),
-        "flash_onepass": (cuda_ms(lambda: A.flash_onepass(q, k, v, t)),
-                          cuda_ms(lambda: A.flash_onepass_plain(q, k, v, t))),
+    calls = {  # name -> (kernel, plain version)
+        "flash_fwd": (lambda: A.flash_fwd(q, k, v, t), lambda: A.flash_fwd_plain(q, k, v, t)),
+        "flash_dkv": (lambda: A.flash_dkv(q, k, v, do, lse, di, t),
+                      lambda: A.flash_dkv_plain(q, k, v, do, lse, di, t)),
+        "flash_dq": (lambda: A.flash_dq(q, k, v, do, lse, di, t),
+                     lambda: A.flash_dq_plain(q, k, v, do, lse, di, t)),
+        "flash_onepass": (lambda: A.flash_onepass(q, k, v, t),
+                          lambda: A.flash_onepass_plain(q, k, v, t)),
     }
+    times = {n: (cuda_ms(fn), cuda_ms_run(fn), cuda_ms(plain))
+             for n, (fn, plain) in calls.items()}
     # SDPA on the same values in its (B, H, T, D) layout
     q4, k4, v4, do4 = (x.view(B, H, t, D) for x in (q, k, v, do))
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4)
+
+    sdpa_fwd = (cuda_ms(sdpa), cuda_ms_run(sdpa))
     leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
 
     def sdpa_fwd_bwd():
@@ -236,19 +267,21 @@ def time_kernels(seed: int) -> dict:
             do4, q4, k4, v4, o4, lse4, cum_q, cum_k, max_q, max_k, 0.0, False,
             seed_t, offset_t)
 
-    lib_bwd = cuda_ms(aten_bwd)
+    lib_bwd = (cuda_ms(aten_bwd), cuda_ms_run(aten_bwd))
     dq4, dk4, dv4 = aten_bwd()
     dk, dv = A.flash_dkv(q, k, v, do, lse, di, t)
     diff = max(float((a.float().reshape(b.shape) - b.float()).abs().max())
                for a, b in ((dq4, A.flash_dq(q, k, v, do, lse, di, t)), (dk4, dk), (dv4, dv)))
     log(f"fwd+bwd T={t} bf16: flash {fb_flash:.3f} ms, scaled_dot_product_attention "
-        f"{fb_sdpa:.3f} ms; backward: K2 + K3 {times['flash_dkv'][0] + times['flash_dq'][0]:.3f} "
-        f"ms, aten flash backward {lib_bwd:.3f} ms (max abs diff of its dQ, dK, dV from "
+        f"{fb_sdpa:.3f} ms; backward (one call / in a run of 20): K2 + K3 "
+        f"{times['flash_dkv'][0] + times['flash_dq'][0]:.3f} / "
+        f"{times['flash_dkv'][1] + times['flash_dq'][1]:.3f} ms, aten flash backward "
+        f"{lib_bwd[0]:.3f} / {lib_bwd[1]:.3f} ms (max abs diff of its dQ, dK, dV from "
         f"K2/K3: {diff:.3g})")
     # the backward's library time stands on both K2 and K3: one call covers both
     library = {"flash_fwd": sdpa_fwd, "flash_dkv": lib_bwd, "flash_dq": lib_bwd,
                "flash_onepass": sdpa_fwd}
-    return {n: (ms, plain, library[n]) for n, (ms, plain) in times.items()}
+    return {n: (*ms, *library[n]) for n, ms in times.items()}
 
 
 def kernel_bounds(t: int) -> dict:
@@ -627,10 +660,11 @@ def main() -> int:
             errs = found
     times = time_kernels(seed=10)
     bounds = kernel_bounds(T_AST)
-    for n, (ms, plain, lib) in times.items():
-        log(f"{n}: {ms:.3f} ms (plain {plain:.3f} ms, library {lib:.3f} ms "
-            f"[{LIBRARY_CALL[n]}], bound {bounds[n][0]:.4f} ms by {bounds[n][1]}) "
-            f"at BH {B * H}, T {T_AST}, D {D}, bf16 on {card}")
+    for n, (ms, ms_run, plain, lib, lib_run) in times.items():
+        log(f"{n}: {ms:.3f} ms one call, {ms_run:.3f} ms a call in a run of 20 (plain "
+            f"{plain:.3f} ms, library {lib:.3f} / {lib_run:.3f} ms [{LIBRARY_CALL[n]}], bound "
+            f"{bounds[n][0]:.4f} ms by {bounds[n][1]}) at BH {B * H}, T {T_AST}, D {D}, bf16 "
+            f"on {card}")
     check_model_and_frontend()
 
     launches = run_main_path()
@@ -647,11 +681,13 @@ def main() -> int:
 
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():
-        ms, plain, lib = times[n]
+        ms, ms_run, plain, lib, lib_run = times[n]
         kernels.append({
             "name": n, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[n], "max_abs_err": errs[n], "ms": ms, "plain_ms": plain,
+            "launches": launches[n], "max_abs_err": errs[n], "ms": ms, "ms_run": ms_run,
+            "plain_ms": plain,
             "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": lib,
+            "library_ms_run": lib_run,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,25 +22,15 @@
 // FLOP/byte ridge, and the (T, T) scores never leave the SM. The TPU's
 // sequential grid axis (the inner loop over K or Q blocks) becomes a loop
 // inside each block, so blocks are independent and no atomics are needed
-// (dQ stays its own kernel, K3, so it is deterministic). Three designs:
+// (dQ stays its own kernel, K3, so it is deterministic). Two designs:
 //
-// - bfloat16 backward, K2 and K3 (the training path's largest cost):
-//   wgmma.mma_async products, FlashAttention-3 style, described at the
-//   kernels below. Against the mma.sync kernels they replace, which waited
-//   on synchronous loads behind barriers, stored operands transposed with
-//   2-byte scalar stores, fed mma.sync from 32-bit shared loads and (K2)
-//   stepped 32 queries at a time: tiles stream through a 3-stage cp.async
+// - bfloat16, all four kernels: wgmma.mma_async products, FlashAttention-3
+//   style, described at the kernels below. Tiles stream through a cp.async
 //   ring while the current one is multiplied; they sit in wgmma's canonical
 //   swizzled layout, read through descriptors, and the transpose bit of the
 //   bf16 wgmma reads a row-major tile as the MN-major operand, so nothing is
-//   stored transposed; one warpgroup issues 64-row products; K2 steps 64
-//   queries (32 at D 128).
-// - bfloat16 forward, K1 and K5: tensor-core mma.sync.m16n8k16 products,
-//   FlashAttention-2 style. A block of 4 warps owns 64 rows, each warp 16;
-//   the scores a warp computes stay in its registers and are reused, rounded
-//   to bf16, as the A operand of P.V, so P never touches shared memory. K1
-//   stores V transposed when its tile is loaded; rows are padded by 8
-//   elements, which makes the fragment loads free of bank conflicts.
+//   stored transposed; one warpgroup issues 64-row products, and the scores
+//   stay in its registers as the A operand of the next product.
 // - float32: FMA from shared-memory tiles (tensor cores would mean TF32 and
 //   lose float32's precision). A 64x64 tile per block, 256 threads as a
 //   16x16 grid; thread (ty, tx) owns rows ty+16i and columns tx+16j.
@@ -416,114 +406,22 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ===========================================================================
-// bfloat16 forward (K1 here, K5 below): mma.sync.m16n8k16, f32 accumulate
+// bfloat16: register and copy helpers
 // ===========================================================================
 //
-// Fragment layouts of mma.m16n8k16 (lane = 4 * g + c, g = lane / 4, c = lane % 4;
-// each 32-bit register holds two consecutive bf16, the lower index first):
-//   A (16x16, row-major): a0 (g, 2c..), a1 (g+8, 2c..), a2 (g, 8+2c..), a3 (g+8, 8+2c..)
-//   B (16x8, col-major):  b0 (k 2c.., n g), b1 (k 8+2c.., n g)
-//   C (16x8, f32):        c0 c1 (g, 2c, 2c+1), c2 c3 (g+8, 2c, 2c+1)
-// The C fragments of two adjacent 8-column tiles are exactly the A fragment
-// of one 16-deep step, which is how scores feed the next product.
+// A wgmma accumulator of 64 rows is, per warp, the C fragment layout of
+// mma.m16n8k16 stacked over the four warps (lane = 4 g + c: warp w holds
+// rows 16w + g and 16w + g + 8, columns 8j + 2c and 8j + 2c + 1 of each
+// 8-column tile j). The C fragments of two adjacent 8-column tiles, rounded
+// to bf16 in pairs, are exactly the register A fragment of one 16-deep step,
+// which is how scores feed the next product.
 
 typedef __nv_bfloat16 bf16;
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
-constexpr int TILE = 64;          // rows of a Q or K/V tile
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // two floats rounded to bf16 (round to nearest even) in one register
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows row0 .. row0+ROWS-1 of a (t_pad, D) bf16 matrix into shared memory,
-// row-major with stride LD, 16 bytes per thread and step, by a block of
-// NTHREADS threads; rows at or past t_pad read as zero.
-template <int ROWS, int D, int LD, int NTHREADS = MMA_THREADS>
-__device__ __forceinline__ void load_bf16(bf16* dst, const bf16* __restrict__ src, int row0,
-                                          int t_pad) {
-  constexpr int CHUNKS = D / 8;
-  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += NTHREADS) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t_pad)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// The same rows stored transposed: dst[col * LDT + r].
-template <int ROWS, int D, int LDT>
-__device__ __forceinline__ void load_bf16_t(bf16* dst, const bf16* __restrict__ src, int row0,
-                                            int t_pad) {
-  constexpr int CHUNKS = D / 8;
-  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += MMA_THREADS) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t_pad)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    const bf16* v = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * LDT + r] = v[i];
-  }
-}
-
-// A fragments of rows r0 .. r0+15 of a row-major tile, one per 16-deep step of D.
-template <int D, int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const bf16* tile, int r0) {
-  const int g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const bf16* p = tile + (r0 + g) * LD + ks * 16 + 2 * c;
-    a[ks][0] = ld_pair(p);
-    a[ks][1] = ld_pair(p + 8 * LD);
-    a[ks][2] = ld_pair(p + 8);
-    a[ks][3] = ld_pair(p + 8 * LD + 8);
-  }
-}
-
-// acc[nt] += A (16 x D, fragments a) . B^T for the 8*NT rows of B (row-major,
-// stride LD): the product with B's rows as columns, e.g. Q K^T.
-template <int D, int LD, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&a)[D / 16][4],
-                                        const bf16* b) {
-  const int g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const bf16* p = b + (nt * 8 + g) * LD + ks * 16 + 2 * c;
-      mma_bf16(acc[nt], a[ks], ld_pair(p), ld_pair(p + 8));
-    }
-}
-
-// acc[dt] += P (16 x K, fragments pa over K / 16 steps) . V where V is given
-// transposed (vt[d * LDT + k]): the (16 x D) result's D / 8 column tiles.
-template <int D, int LDT, int KSTEPS>
-__device__ __forceinline__ void mma_av(float (&acc)[D / 8][4], const uint32_t (&pa)[KSTEPS][4],
-                                       const bf16* vt) {
-  const int g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const bf16* p = vt + (dt * 8 + g) * LDT + ks * 16 + 2 * c;
-      mma_bf16(acc[dt], pa[ks], ld_pair(p), ld_pair(p + 8));
-    }
 }
 
 template <int NT>
@@ -569,106 +467,19 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-// K1, bf16. Block (64-row q tile, bh); warp w owns rows 16w..16w+15.
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-              int t_pad, int t_real, float scale) {
-  constexpr int LD = D + 8, LDT = TILE + 8, NT = TILE / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TILE][LD]
-  bf16* Ks = Qs + TILE * LD;                      // [TILE][LD]
-  bf16* Vt = Ks + TILE * LD;                      // [D][LDT], V transposed
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * TILE;
-  const int w = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
-  const size_t base = static_cast<size_t>(bh) * t_pad * D;
-
-  load_bf16<TILE, D, LD>(Qs, q + base, q0, t_pad);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  load_a<D, LD>(qa, Qs, 16 * w);
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-  zero(acc);
-  const int nk = (t_real + TILE - 1) / TILE;  // later tiles: p = 0, alpha = 1
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    load_bf16<TILE, D, LD>(Ks, k + base, k0, t_pad);
-    load_bf16_t<TILE, D, LDT>(Vt, v + base, k0, t_pad);
-    __syncthreads();
-
-    float s[NT][4];
-    zero(s);
-    mma_abt<D, LD, NT>(s, qa, Ks);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + nt * 8 + 2 * c + (i & 1);
-        s[nt][i] = scale * s[nt][i] + (key < t_real ? 0.f : NEG_INF);
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-      }
-    float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-    uint32_t pa[NT / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float p0 = expf(s[nt][0] - m[0]), p1 = expf(s[nt][1] - m[0]);
-      const float p2 = expf(s[nt][2] - m[1]), p3 = expf(s[nt][3] - m[1]);
-      psum[0] += p0 + p1;
-      psum[1] += p2 + p3;
-      pa[nt / 2][2 * (nt % 2)] = pack_bf16(p0, p1);  // P rounded to V's type
-      pa[nt / 2][2 * (nt % 2) + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l[r] = l[r] * alpha[r] + psum[r];
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-    mma_av<D, LDT, NT / 2>(acc, pa, Vt);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_safe = fmaxf(l[r], 1e-30f);
-    inv[r] = 1.f / l_safe;
-    const int row = q0 + 16 * w + g + 8 * r;
-    if (c == 0 && row < t_pad) lse[static_cast<size_t>(bh) * t_pad + row] = m[r] + logf(l_safe);
-  }
-  store_rows<D>(o + base, acc, q0 + 16 * w, t_pad, inv);
-}
 
 // ===========================================================================
-// bfloat16 backward (K2 dK/dV, K3 dQ): wgmma from swizzled shared memory
+// bfloat16 (K1, K2, K3, K5): wgmma from swizzled shared memory
 // ===========================================================================
 //
 // One consumer warpgroup (4 warps, 128 threads) per block owns 64 rows: keys
-// in K2, queries in K3. Every product is a wgmma.mma_async m64nNk16 with f32
-// accumulators; the accumulator's per-warp layout is that of mma.m16n8k16's
-// C, stacked over the four warps (warp w holds rows 16w..16w+15), so the
-// scores rounded to bf16 are directly the register A operand of the next
-// product, as in the mma.sync kernels:
+// in K2, queries in K1, K3 and K5. Every product is a wgmma.mma_async
+// m64nNk16 with f32 accumulators; the accumulator's per-warp layout is that
+// of mma.m16n8k16's C, stacked over the four warps (warp w holds rows
+// 16w..16w+15), so the scores rounded to bf16 are directly the register A
+// operand of the next product:
+//   K1, K5: S = Q K^T (both K-major), P in registers, O += P V (V read
+//       MN-major through wgmma's transpose bit);
 //   K3: S = Q K^T, dP = dO V^T (A and B from shared memory, both K-major),
 //       dS = P (dP - di) in registers, dQ += dS K (A from registers, B = the
 //       K tile read MN-major through wgmma's transpose bit);
@@ -681,10 +492,11 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Tiles are in wgmma's canonical swizzled layout (the SwzTile note below)
 // and stream through a ring of cp.async stages, 16 bytes a copy, written
 // straight to their swizzled addresses: the next tiles land while the
-// current one is multiplied. Per step the warpgroup issues the two first
-// products as two commit groups, turns S into P as soon as the first group
-// is done (while dP still runs), starts the P product, turns dP into dS and
-// starts the dS product, then waits for both before the ring slot is reused.
+// current one is multiplied. Per step the backward's warpgroup issues the
+// two first products as two commit groups, turns S into P as soon as the
+// first group is done (while dP still runs), starts the P product, turns dP
+// into dS and starts the dS product, then waits for both before the ring
+// slot is reused. The forwards' schedule is described at FwdPlan.
 
 constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr int WG_ROWS = 64;      // rows a warpgroup owns (wgmma's M)
@@ -733,12 +545,19 @@ struct SwzTile {
 };
 
 // Rows row0 .. row0+R-1 of a (t_pad, D) bf16 matrix into a SwzTile by
-// cp.async; rows at or past t_pad are zero-filled.
+// cp.async; rows at or past t_pad are zero-filled. The blocks are one
+// warpgroup, so threadIdx.x % WG_THREADS is threadIdx.x: written so, the
+// compiler knows the start is below 128 and the trip count exact. At the
+// AST shape on an H100 (80GB HBM3, 700 W) a loop from threadIdx.x took 29%
+// longer for K1, 35% for K5 and 15% for K2 + K3, and a fully unrolled loop
+// of fixed count 16% longer for K2 + K3, whose swizzled addresses it holds
+// in registers (K2 at 183 instead of 165: two blocks an SM instead of
+// three); eav_tpu_torch/scripts/flash_variants.py measures both.
 template <int R, int D>
 __device__ __forceinline__ void issue_swz(unsigned char* dst, const bf16* __restrict__ src,
                                           int row0, int t_pad) {
   constexpr int CH = D / 8;
-  for (int e = threadIdx.x; e < R * CH; e += WG_THREADS) {
+  for (int e = threadIdx.x % WG_THREADS; e < R * CH; e += WG_THREADS) {
     const int r = e / CH, ch = e % CH;
     const bool ok = row0 + r < t_pad;
     cp_async16(dst + SwzTile<R, D>::offset(r, ch),
@@ -927,6 +746,200 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// The bf16 forwards, K1 and K5: one warpgroup owns 64 query rows; K and V
+// tiles of FWD_BK = 64 keys stream through a ring of cp.async stages, a
+// stage holding a K tile, then a V tile, refilled one step after its own, so
+// the ring loads STAGES - 1 steps ahead. The scores stay in registers: the S
+// accumulator (32 f32 a thread) becomes P in place and, rounded to bf16, the
+// register A operand of P V. Each tile's two products are waited for in
+// turn: three blocks share an SM and overlap one block's softmax with
+// another's products.
+// ---------------------------------------------------------------------------
+constexpr int FWD_BK = 64;
+template <int D>
+struct FwdPlan {
+  static constexpr int QBYTES = SwzTile<WG_ROWS, D>::BYTES, KBYTES = SwzTile<FWD_BK, D>::BYTES;
+  // 4 stages for K1 and 3 for K5 (one less at D 128): 72 and 57 KB with the
+  // Q tile at D 64, so three blocks share an SM (two at D 128). On the H100
+  // K1 took 6% longer with 3 stages, K5 7% longer with 4
+  // (eav_tpu_torch/scripts/flash_variants.py).
+  static constexpr int K1_STAGES = D == 128 ? 3 : 4, K5_STAGES = D == 128 ? 2 : 3;
+  static constexpr size_t smem(int stages) { return 1024 + QBYTES + stages * 2 * KBYTES; }
+};
+
+// Key tile kt of K, and with with_v of V after it, into a ring stage.
+template <int D>
+__device__ __forceinline__ void issue_kv(unsigned char* stage, const bf16* __restrict__ k,
+                                         const bf16* __restrict__ v, int kt, int t_pad,
+                                         bool with_v) {
+  issue_swz<FWD_BK, D>(stage, k, kt * FWD_BK, t_pad);
+  if (with_v) issue_swz<FWD_BK, D>(stage + FwdPlan<D>::KBYTES, v, kt * FWD_BK, t_pad);
+}
+
+// s = Q K^T for the key tile at k0 (raw dot products), waited for; the keys
+// at or past t_real set to -1e30 (only the last tile holds such keys).
+template <int D>
+__device__ __forceinline__ void fwd_scores(float (&s)[FWD_BK / 8][4], uint32_t q_sm,
+                                           uint32_t k_sm, int k0, int t_real) {
+  wgmma_fence();
+  wg_abt<FWD_BK, D>(s, q_sm, k_sm);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(s);
+  if (k0 + FWD_BK <= t_real) return;
+  const int c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < FWD_BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (k0 + 8 * j + 2 * c + (i & 1) >= t_real) s[j][i] = NEG_INF;
+}
+
+// acc += P V for one key tile, waited for (acc is rescaled next and the
+// stage refilled): P (the f32 probabilities in p) rounded to V's type as the
+// register A operand, the row-major V tile read MN-major.
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&acc)[D / 8][4], const float (&p)[FWD_BK / 8][4],
+                                       uint32_t v_sm) {
+  uint32_t pa[FWD_BK / 16][4];
+  to_a(pa, p);
+  pin(pa);
+  pin(acc);
+  wgmma_fence();
+  wg_av<D, FWD_BK / 16>(acc, pa, v_sm);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(acc);
+  pin(pa);
+}
+
+// The ring of a forward kernel over `steps` steps: step i brings key tile
+// i (i - nk past nk) into stage i % ST as cp.async group i, its V tile too
+// in the last nk steps (all of K1's; K5's second sweep). Group 0 also holds
+// the Q tile, issued before.
+template <int D, int ST>
+struct FwdRing {
+  unsigned char* ring;
+  const bf16* k;
+  const bf16* v;
+  int t_pad, nk, steps;
+
+  __device__ __forceinline__ unsigned char* stage(int i) const {
+    return ring + (i % ST) * 2 * FwdPlan<D>::KBYTES;
+  }
+  __device__ __forceinline__ void issue(int i) const {
+    if (i < steps) issue_kv<D>(stage(i), k, v, i < nk ? i : i - nk, t_pad, i >= steps - nk);
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void start() const {
+    for (int t = 0; t < ST - 1; ++t) issue(t);
+  }
+  // waits for step i's tiles, refills step i - 1's stage; step i's K tile
+  __device__ __forceinline__ uint32_t advance(int i) const {
+    cp_async_wait<ST - 2>();  // this thread's copies of step i have landed
+    fence_async_smem();
+    __syncthreads();  // everyone's have, and step i - 1's products are done
+    issue(i + ST - 1);
+    return smem_u32(stage(i));
+  }
+};
+
+// Max over the quad of lanes that share rows g and g + 8.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The forwards' epilogue: l summed over the quad, O = acc / max(l, 1e-30)
+// and LSE = m scale + log max(l, 1e-30) for this thread's rows of the tile
+// at q0 (m the raw row max, so m scale is the scaled scores' max).
+template <int D>
+__device__ __forceinline__ void fwd_store(bf16* __restrict__ o, float* __restrict__ lse_bh,
+                                          const float (&acc)[D / 8][4], const float (&m)[2],
+                                          const float (&l)[2], int q0, int t_pad, float scale) {
+  const int w = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_safe = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.f / l_safe;
+    const int row = q0 + 16 * w + g + 8 * r;
+    if (c == 0 && row < t_pad) lse_bh[row] = m[r] * scale + logf(l_safe);
+  }
+  store_rows<D>(o, acc, q0 + 16 * w, t_pad, inv);
+}
+
+// K1: replaces _flash_kernel (eav_tpu/ops/pallas/attention.py:73). Block
+// (64-query tile, bh), the (ceil(t_pad / 64), BH) grid of K3: 19 x 96 = 1824
+// blocks at the AST shape. K and V tiles stream over the keys below t_real
+// (later tiles would give p = 0, alpha = 1). 4 T^2 D BH FLOP, bound by
+// operations. Per tile: S = Q K^T, the online softmax in registers (each
+// thread holds rows g and g + 8 of its warp's 16, row maxima over the quad,
+// exp2 with scale log2(e) folded in), acc rescaled by alpha, then acc +=
+// bf16(P) V. l is this thread's share of the row sum over the unrounded P
+// (alpha is the same over the quad), summed over the quad at the end.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                int t_pad, int t_real, float scale) {
+  using P = FwdPlan<D>;
+  constexpr int NT = FWD_BK / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  const int bh = blockIdx.y, q0 = blockIdx.x * WG_ROWS;
+  const size_t base = static_cast<size_t>(bh) * t_pad * D;
+  const int nk = (t_real + FWD_BK - 1) / FWD_BK;
+  const FwdRing<D, P::K1_STAGES> ring{Qs + P::QBYTES, k + base, v + base, t_pad, nk, nk};
+
+  issue_swz<WG_ROWS, D>(Qs, q + base, q0, t_pad);
+  ring.start();
+  const float scale2 = scale * LOG2E;
+  const uint32_t q_sm = smem_u32(Qs);
+
+  // m: the raw row max so far of rows g and g + 8; every tile holds a real
+  // key, so m is finite after the first
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[D / 8][4];
+  zero(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t k_sm = ring.advance(kt);
+    float s[NT][4];
+    fwd_scores<D>(s, q_sm, k_sm, kt * FWD_BK, t_real);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2f((m[r] - mx[r]) * scale2);
+      m[r] = mx[r];
+      mb[r] = mx[r] * scale2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = exp2f(fmaf(s[j][i], scale2, -mb[i >> 1]));
+        l[i >> 1] += s[j][i];
+      }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[dt][i] *= alpha[i >> 1];
+    fwd_pv<D>(acc, s, k_sm + P::KBYTES);
+  }
+  fwd_store<D>(o + base, lse + static_cast<size_t>(bh) * t_pad, acc, m, l, q0, t_pad, scale);
+}
 
 // K3: replaces _dq_kernel (eav_tpu/ops/pallas/attention.py:158). Block
 // (64-query tile, bh); the Q and dO tiles stay, K and V tiles stream over
@@ -1179,29 +1192,29 @@ flash_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K5: the one-pass forward (eav_flash_onepass)
 // ===========================================================================
 //
-// The K1 forward with a single K block, so the softmax is plain: one row max,
-// one exp, one f32 sum of the unrounded P, no online rescaling. The TPU kernel
+// Replaces _onepass_kernel (scripts/flash_onepass_experiment.py:25): the K1
+// forward with a single K block, so the softmax is plain: one row max, one
+// exp, one f32 sum of the unrounded P, no online rescaling. The TPU kernel
 // holds a head's whole (T_pad x T_pad) f32 score tile in VMEM; at T 1214 that
-// is 6.5 MB, far past the 227 KB of shared memory a Hopper block may have. So
-// a block here owns a stripe of OP_ROWS = 32 query rows and keeps the stripe's
+// is 6.5 MB, far past the 227 KB of shared memory a Hopper block may have.
+// What bounds it: the function's 4 T^2 D BH FLOP (operations, on 60 MB of
+// operands at the AST shape); each block rereads its head's K and V from L2.
+// Key tiles wholly past t_real are skipped (their P would be exactly 0).
+//
+// bf16 (flash_onepass_wgmma, at the end of this section) recomputes the
+// scores in a second sweep instead of keeping them. float32 keeps them: a
+// block owns a stripe of OP_ROWS = 32 query rows and keeps the stripe's
 // whole score rows (32 x W f32, W = t_real rounded up to 64 keys: 156 KB at
 // T 1214) in dynamic shared memory, in three phases:
 //   1. S = scale Q K^T over 64-key tiles of K; keys >= t_real are set to -1e30;
 //   2. per row m = max S, P = exp(S - m) written over S (f32, unrounded),
 //      l = sum P, LSE = m + log max(l, 1e-30);
-//   3. O = (P V) / max(l, 1e-30) over 64-key tiles of V, P rounded to V's
-//      type first.
-// Key tiles wholly past t_real are skipped (their P would be exactly 0). The
-// stripe's rows are padded (by 8 floats for bf16, 16 for float32) so that the
-// fragment stores of phase 1 and loads of phase 3 are free of bank conflicts.
-// bf16 goes through mma.sync.m16n8k16 as K1 does, with K and V tiles
-// streamed through a cp.async ring; float32 through FMA from tiles loaded in
-// turn. 8 warps per block, one block per SM (the stripe takes most of its
-// shared memory).
-// What bounds it: the same 4 T^2 D BH FLOP as K1 (operations, on 60 MB of
-// operands at the AST shape); each block rereads its head's K and V from L2.
-// The stripe bounds T: the launcher refuses a T whose stripe does not fit
-// (the Python wrapper raises before that, from the same sizes).
+//   3. O = (P V) / max(l, 1e-30) over 64-key tiles of V.
+// The stripe's rows are padded by 16 floats so that the stores of phase 1
+// and loads of phase 3 are free of bank conflicts; FMA from tiles loaded in
+// turn, 8 warps per block, one block per SM (the stripe takes most of its
+// shared memory). The stripe bounds T: the launcher refuses a T whose stripe
+// does not fit (the Python wrapper raises before that, from the same sizes).
 
 constexpr int OP_ROWS = 32;          // query rows per block
 constexpr int OP_KTILE = 64;         // keys per K or V tile
@@ -1312,146 +1325,71 @@ flash_onepass_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The two B fragments of one 16-deep step of an mma whose B (keys x 8
-// columns) is stored row-major, keys as rows: rows p, p + LD, ... given by
-// lanes 0-15 (keys 0-15 of the step); .trans hands each thread its column.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(smem_u32(p)));
-}
-
-constexpr int OP_STAGES = 3;  // K or V tiles in flight in the bf16 kernel's ring
-
-// Rows k0 .. k0+63 of a (t_pad, D) bf16 matrix into a ring slot (row-major,
-// stride LD) by cp.async; rows at or past t_pad are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void issue_tile(bf16* dst, const bf16* __restrict__ src, int k0,
-                                           int t_pad) {
-  constexpr int CHUNKS = D / 8;
-  for (int e = threadIdx.x; e < OP_KTILE * CHUNKS; e += OP_THREADS) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    const bool ok = k0 + r < t_pad;
-    cp_async16(dst + r * LD + c, src + static_cast<size_t>(ok ? k0 + r : 0) * D + c, ok);
-  }
-  cp_async_commit();
-}
-
-// K5, bf16. Block (32-row stripe, bh); warp w works on the stripe's 16-row
-// half mt = w & 1: in phase 1 on keys 16 (w >> 1) .. +15 of each K tile, in
-// phase 3 on the output column tiles dt = (w >> 1) + 4i. K and V tiles stream
-// through a ring of OP_STAGES row-major slots filled by cp.async, so the next
-// tiles load while the current one is used (and V's first tiles load during
-// the softmax); the P V product reads V's B fragments with ldmatrix.trans.
+// K5, bf16: the same function without the stripe. K1's blocks, tiles and
+// ring, with the score rows recomputed instead of kept:
+//   sweep 1 streams K only: S = Q K^T, the exact row max m in registers;
+//   sweep 2 streams K and V: S again (the same instructions on the same
+//     tiles give the same f32 values), P = exp(S - m) with the final m, l
+//     summed over the unrounded P, acc += bf16(P) V; neither acc nor l is
+//     ever rescaled;
+//   then O = acc / max(l, 1e-30) and LSE = m + log max(l, 1e-30).
+// This is the TPU kernel's function, one max, one exp and one sum a row and
+// no alpha, at 6 T^2 D BH FLOP against its 4 (Q K^T twice). Keeping the
+// scores instead, as float32 does, takes 156 KB per 32 rows at T 1214 (one
+// block an SM) and bounds T; recomputed, they need 57 KB (three blocks an
+// SM) and any T fits. The ring runs on over both sweeps (2 nk steps), so
+// sweep 2's first tiles load during sweep 1's last.
 template <int D>
-__global__ void __launch_bounds__(OP_THREADS)
-flash_onepass_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                  int t_pad, int t_real, float scale) {
-  constexpr int LD = D + 8, DT = D / 8, DTW = (DT + 3) / 4;
-  constexpr int KSTEPS = OP_KTILE / 16, SLOT = OP_KTILE * LD;
-  const int width = op_width(t_real), lds = width + 8, nk = width / OP_KTILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* S = reinterpret_cast<float*>(smem_raw);      // [OP_ROWS][lds]
-  float* lsum = S + OP_ROWS * lds;                     // [OP_ROWS]
-  bf16* Qs = reinterpret_cast<bf16*>(lsum + OP_ROWS);  // [OP_ROWS][LD]
-  bf16* ring = Qs + OP_ROWS * LD;                      // [OP_STAGES][OP_KTILE][LD]
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * OP_ROWS;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
-  const int mt = w & 1, wq = w >> 1;
+__global__ void __launch_bounds__(WG_THREADS)
+flash_onepass_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int t_pad, int t_real, float scale) {
+  using P = FwdPlan<D>;
+  constexpr int NT = FWD_BK / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  const int bh = blockIdx.y, q0 = blockIdx.x * WG_ROWS;
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
+  const int nk = (t_real + FWD_BK - 1) / FWD_BK;
+  const FwdRing<D, P::K5_STAGES> ring{Qs + P::QBYTES, k + base, v + base, t_pad, nk, 2 * nk};
 
-  // ring prologue: the first OP_STAGES - 1 K tiles (an empty group past nk
-  // keeps the group count, and so the waits below, uniform)
-  for (int t = 0; t < OP_STAGES - 1; ++t) {
-    if (t < nk) issue_tile<D, LD>(ring + t * SLOT, k + base, t * OP_KTILE, t_pad);
-    else cp_async_commit();
-  }
-  load_bf16<OP_ROWS, D, LD, OP_THREADS>(Qs, q + base, q0, t_pad);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  load_a<D, LD>(qa, Qs, 16 * mt);
+  issue_swz<WG_ROWS, D>(Qs, q + base, q0, t_pad);
+  ring.start();
+  const float scale2 = scale * LOG2E;
+  const uint32_t q_sm = smem_u32(Qs);
 
+  float m[2] = {NEG_INF, NEG_INF};  // raw row max of rows g and g + 8
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<OP_STAGES - 2>();  // this thread's part of tile kt has landed
-    __syncthreads();  // everyone's has, and every warp is done with tile kt - 1
-    const int next = kt + OP_STAGES - 1;  // into tile kt - 1's slot
-    if (next < nk) issue_tile<D, LD>(ring + (next % OP_STAGES) * SLOT, k + base, next * OP_KTILE, t_pad);
-    else cp_async_commit();
-    const int k0 = kt * OP_KTILE;
-    float s[2][4];
-    zero(s);
-    mma_abt<D, LD, 2>(s, qa, ring + (kt % OP_STAGES) * SLOT + 16 * wq * LD);
+    float s[NT][4];
+    fwd_scores<D>(s, q_sm, ring.advance(kt), kt * FWD_BK, t_real);
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int key = k0 + 16 * wq + nt * 8 + 2 * c;
-        float2 val;
-        val.x = key < t_real ? scale * s[nt][2 * r] : NEG_INF;
-        val.y = key + 1 < t_real ? scale * s[nt][2 * r + 1] : NEG_INF;
-        *reinterpret_cast<float2*>(S + (16 * mt + g + 8 * r) * lds + key) = val;
-      }
+      for (int i = 0; i < 4; ++i) m[i >> 1] = fmaxf(m[i >> 1], s[j][i]);
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the scores are complete and the ring is free
-  for (int t = 0; t < OP_STAGES - 1; ++t) {  // V's first tiles load during the softmax
-    if (t < nk) issue_tile<D, LD>(ring + t * SLOT, v + base, t * OP_KTILE, t_pad);
-    else cp_async_commit();
-  }
-  onepass_softmax(S, lds, width, lsum, lse + static_cast<size_t>(bh) * t_pad, q0, t_pad);
-
-  float acc[DTW][4];
-  zero(acc);
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<OP_STAGES - 2>();
-    __syncthreads();  // V tile kt is in, P is complete, tile kt - 1 is consumed
-    const int next = kt + OP_STAGES - 1;
-    if (next < nk) issue_tile<D, LD>(ring + (next % OP_STAGES) * SLOT, v + base, next * OP_KTILE, t_pad);
-    else cp_async_commit();
-    const int k0 = kt * OP_KTILE;
-    const bf16* Vs = ring + (kt % OP_STAGES) * SLOT;  // [key][d]
-    // A fragments of P (rows 16 mt + g, + 8; this tile's keys), rounded to bf16
-    uint32_t pa[KSTEPS][4];
-    const float* prow = S + (16 * mt + g) * lds + k0 + 2 * c;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const float* p = prow + ks * 16;
-      const float2 a0 = *reinterpret_cast<const float2*>(p);
-      const float2 a1 = *reinterpret_cast<const float2*>(p + 8 * lds);
-      const float2 a2 = *reinterpret_cast<const float2*>(p + 8);
-      const float2 a3 = *reinterpret_cast<const float2*>(p + 8 * lds + 8);
-      pa[ks][0] = pack_bf16(a0.x, a0.y);
-      pa[ks][1] = pack_bf16(a1.x, a1.y);
-      pa[ks][2] = pack_bf16(a2.x, a2.y);
-      pa[ks][3] = pack_bf16(a3.x, a3.y);
-    }
-#pragma unroll
-    for (int i = 0; i < DTW; ++i) {
-      const int dt = wq + 4 * i;
-      if (dt >= DT) continue;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, Vs + (ks * 16 + (lane & 15)) * LD + dt * 8);
-        mma_bf16(acc[i], pa[ks], b0, b1);
-      }
-    }
-  }
+  float mb[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * mt + g + 8 * r;
-    if (row >= t_pad) continue;
-    const float l_safe = lsum[16 * mt + g + 8 * r];
-#pragma unroll
-    for (int i = 0; i < DTW; ++i) {
-      const int dt = wq + 4 * i;
-      if (dt >= DT) continue;
-      *reinterpret_cast<uint32_t*>(o + base + static_cast<size_t>(row) * D + dt * 8 + 2 * c) =
-          pack_bf16(acc[i][2 * r] / l_safe, acc[i][2 * r + 1] / l_safe);
-    }
+    m[r] = quad_max(m[r]);
+    mb[r] = m[r] * scale2;
   }
+
+  float l[2] = {0.f, 0.f}, acc[D / 8][4];
+  zero(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t k_sm = ring.advance(nk + kt);
+    float s[NT][4];
+    fwd_scores<D>(s, q_sm, k_sm, kt * FWD_BK, t_real);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = exp2f(fmaf(s[j][i], scale2, -mb[i >> 1]));
+        l[i >> 1] += s[j][i];
+      }
+    fwd_pv<D>(acc, s, k_sm + P::KBYTES);
+  }
+  fwd_store<D>(o + base, lse + static_cast<size_t>(bh) * t_pad, acc, m, l, q0, t_pad, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -1478,7 +1416,6 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, int bh, int t_pad,
 
 constexpr size_t f32_tile(int d) { return static_cast<size_t>(BLOCK) * (d + 1); }
 constexpr size_t f32_scores = static_cast<size_t>(BLOCK) * PLD;
-constexpr size_t bf16_tile(int rows, int d) { return static_cast<size_t>(rows) * (d + 8); }
 
 template <int D>
 cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
@@ -1490,11 +1427,10 @@ cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v, v
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<float*>(o),
                   static_cast<float*>(lse), t_pad, t_real, scale);
-  return launch(flash_fwd_mma<D>, MMA_THREADS,
-                (2 * bf16_tile(TILE, D) + bf16_tile(D, TILE)) * sizeof(bf16), bh, t_pad,
-                stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                static_cast<float*>(lse), t_pad, t_real, scale);
+  return launch(flash_fwd_wgmma<D>, WG_THREADS, FwdPlan<D>::smem(FwdPlan<D>::K1_STAGES), bh,
+                t_pad, stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
+                t_pad, t_real, scale);
 }
 
 template <int D>
@@ -1533,40 +1469,32 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                 static_cast<bf16*>(dq), t_pad, t_real, scale);
 }
 
-// Dynamic shared memory of K5 for a head dim and t_real (the sizes of the
-// kernels' carve-ups above; ops/attention.py computes the same).
-size_t onepass_smem(int dtype, int d, int t_real) {
-  const size_t width = op_width(t_real);
-  if (dtype == 0)
-    return sizeof(float) * (OP_ROWS * (width + 16) + OP_ROWS + OP_ROWS * (d + 1) +
-                            OP_KTILE * (d + 1));
-  return sizeof(float) * (OP_ROWS * (width + 8) + OP_ROWS) +
-         sizeof(bf16) * (OP_ROWS + OP_STAGES * OP_KTILE) * (d + 8);
+// Dynamic shared memory of the float32 K5 for a head dim and t_real (the
+// kernel's carve-up above; ops/attention.py computes the same).
+size_t onepass_smem_f32(int d, int t_real) {
+  return sizeof(float) * (OP_ROWS * (op_width(t_real) + 16) + OP_ROWS + OP_ROWS * (d + 1) +
+                          OP_KTILE * (d + 1));
 }
 
-// K5 on a (ceil(t_pad / 32), bh) grid; refuses a stripe past SMEM_LIMIT.
+// K5: float32 on a (ceil(t_pad / 32), bh) grid, refusing a stripe past
+// SMEM_LIMIT; bf16 on K1's grid, any T.
 template <int D>
 cudaError_t launch_onepass(int dtype, const void* q, const void* k, const void* v, void* o,
                            void* lse, int bh, int t_pad, int t_real, float scale,
                            cudaStream_t stream) {
-  const size_t smem = onepass_smem(dtype, D, t_real);
+  if (dtype == 1)
+    return launch(flash_onepass_wgmma<D>, WG_THREADS, FwdPlan<D>::smem(FwdPlan<D>::K5_STAGES),
+                  bh, t_pad, stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
+                  t_pad, t_real, scale);
+  const size_t smem = onepass_smem_f32(D, t_real);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_onepass_f32<D>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((t_pad + OP_ROWS - 1) / OP_ROWS, bh);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = allow_smem(flash_onepass_f32<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_onepass_f32<D><<<grid, OP_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), t_pad,
-        t_real, scale);
-  } else {
-    err = allow_smem(flash_onepass_mma<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_onepass_mma<D><<<grid, OP_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), static_cast<float*>(lse), t_pad, t_real, scale);
-  }
+  flash_onepass_f32<D><<<grid, OP_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), t_pad, t_real, scale);
   return cudaGetLastError();
 }
 

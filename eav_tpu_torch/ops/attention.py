@@ -9,13 +9,15 @@ the JAX package (``eav_tpu/ops/pallas/attention.py`` and
 - K2 ``flash_dkv``: dK and dV, per K tile over all Q tiles;
 - K3 ``flash_dq``: dQ, per Q tile over all K tiles;
 - K5 ``flash_onepass``: the K1 forward as one K block, a plain softmax over
-  each query row's whole score row (no online rescaling). Its stripe of
-  score rows lives in shared memory, which bounds T (``onepass_max_len``).
+  each query row's whole score row (no online rescaling). The bf16 kernel
+  recomputes the scores in a second sweep and takes any T; the float32
+  kernel keeps a stripe of score rows in shared memory, which bounds its T
+  (``onepass_max_len``).
 
 Operands are head-major (BH, T, D) with ``t_real`` <= T real keys; the keys
 past ``t_real`` are masked with -1e30 (exactly zero probability). The kernels
 tile T by 64 and take any length, so the (B, T, H, D) API does not pad.
-bfloat16 operands go through tensor-core kernels, float32 operands through
+bfloat16 operands go through tensor-core (wgmma) kernels, float32 operands through
 float32 FMA kernels; both accumulate in float32 with a float32 softmax state,
 and P is rounded to V's type before P V and dS to Q's type before the dS
 products, as on the TPU.
@@ -46,11 +48,11 @@ _SIGNATURES = {
     "eav_flash_dq": (_I, _I, _I) + (_VP,) * 7 + (_I, _I, _I, ctypes.c_float, _VP),
     "eav_flash_onepass": (_I, _I, _I) + (_VP,) * 5 + (_I, _I, _I, ctypes.c_float, _VP),
 }
-# K5's carve-up of dynamic shared memory (csrc ``onepass_smem``): a stripe of
-# 32 query rows by t_real rounded up to 64 keys of float32 scores, padded by 8
-# (bf16) or 16 (float32) floats a row, the rows' l, the Q stripe and the K or
-# V tiles (a ring of 3 in bf16, one in float32). A block may have at most 227 KB.
-ONEPASS_ROWS, ONEPASS_KTILE, ONEPASS_STAGES, SMEM_LIMIT = 32, 64, 3, 232448
+# The float32 K5's carve-up of dynamic shared memory (csrc ``onepass_smem_f32``):
+# a stripe of 32 query rows by t_real rounded up to 64 keys of float32 scores,
+# padded by 16 floats a row, the rows' l, the Q stripe and one K or V tile. A
+# block may have at most 227 KB.
+ONEPASS_ROWS, ONEPASS_KTILE, SMEM_LIMIT = 32, 64, 232448
 
 
 _lib = None
@@ -230,21 +232,18 @@ def flash_dq(q, k, v, do, lse, di, t_real: int):
     return dq
 
 
-def onepass_smem_bytes(dtype: torch.dtype, d: int, t_real: int) -> int:
-    """K5's dynamic shared memory for ``t_real`` keys of head dim ``d``."""
+def onepass_smem_bytes(d: int, t_real: int) -> int:
+    """The float32 K5's dynamic shared memory for ``t_real`` keys of head dim ``d``."""
     width = -(-t_real // ONEPASS_KTILE) * ONEPASS_KTILE
-    if dtype == torch.float32:
-        return 4 * (ONEPASS_ROWS * (width + 16) + ONEPASS_ROWS
-                    + (ONEPASS_ROWS + ONEPASS_KTILE) * (d + 1))
-    return (4 * (ONEPASS_ROWS * (width + 8) + ONEPASS_ROWS)
-            + 2 * (ONEPASS_ROWS + ONEPASS_STAGES * ONEPASS_KTILE) * (d + 8))
+    return 4 * (ONEPASS_ROWS * (width + 16) + ONEPASS_ROWS
+                + (ONEPASS_ROWS + ONEPASS_KTILE) * (d + 1))
 
 
-def onepass_max_len(dtype: torch.dtype, d: int) -> int:
-    """The longest ``t_real`` whose K5 stripe fits a block (1536 keys for bf16
-    at head dim 64, 1600 for float32)."""
+def onepass_max_len(d: int) -> int:
+    """The longest ``t_real`` whose float32 K5 stripe fits a block (1600 keys
+    at head dim 64). The bf16 kernel keeps no stripe and takes any T."""
     t = ONEPASS_KTILE
-    while onepass_smem_bytes(dtype, d, t + ONEPASS_KTILE) <= SMEM_LIMIT:
+    while onepass_smem_bytes(d, t + ONEPASS_KTILE) <= SMEM_LIMIT:
         t += ONEPASS_KTILE
     return t
 
@@ -252,15 +251,16 @@ def onepass_max_len(dtype: torch.dtype, d: int) -> int:
 def flash_onepass(q, k, v, t_real: int):
     """K5 (replaces ``_onepass_kernel``, scripts/flash_onepass_experiment.py:25).
     q, k, v (BH, T, D) -> (o (BH, T, D), lse (BH, T) float32). On the card,
-    ``t_real`` beyond ``onepass_max_len`` raises: the stripe would not fit."""
+    float32 ``t_real`` beyond ``onepass_max_len`` raises: the stripe would
+    not fit."""
     bh, t_pad, d = _check_operands(q, k, v)
     if _on_cpu(q, k, v):
         return flash_onepass_plain(q, k, v, t_real)
-    if t_real > onepass_max_len(q.dtype, d):
+    if q.dtype == torch.float32 and t_real > onepass_max_len(d):
         raise ValueError(
-            f"flash_onepass: t_real={t_real} needs {onepass_smem_bytes(q.dtype, d, t_real)} "
-            f"bytes of shared memory for its score stripe, more than a block's {SMEM_LIMIT}; "
-            f"the kernel takes at most {onepass_max_len(q.dtype, d)} keys at this dtype and D")
+            f"flash_onepass: t_real={t_real} needs {onepass_smem_bytes(d, t_real)} "
+            f"bytes of shared memory for its float32 score stripe, more than a block's "
+            f"{SMEM_LIMIT}; the float32 kernel takes at most {onepass_max_len(d)} keys at D {d}")
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
     _launch("eav_flash_onepass", q, (q, k, v, o, lse), bh, t_pad, t_real)

@@ -129,7 +129,18 @@ def test_resource_usage_reads_the_ptxas_report(tmp_path, monkeypatch):
              "ptxas info    : Used {regs} registers, used 1 barriers\n")
     (tmp_path / "libx.log").write_text(
         entry.format(n=15, name="flash_dkv_wgmma", d=64, spill=0, regs=165)
-        + entry.format(n=13, name="flash_fwd_mma", d=128, spill=28, regs=168))
+        + entry.format(n=15, name="flash_fwd_wgmma", d=128, spill=28, regs=168))
     monkeypatch.setattr(build, "build", lambda name: tmp_path / "libx.so")
     assert build.resource_usage("x") == {"flash_dkv_wgmma<64>": (165, 0),
-                                         "flash_fwd_mma<128>": (168, 28)}
+                                         "flash_fwd_wgmma<128>": (168, 28)}
+
+
+def test_flash_variants_patch_the_committed_source():
+    """Each A/B variant of the timing script patches the CUDA source where
+    its text occurs exactly once, so the script measures what it names."""
+    from eav_tpu_torch.ops import build
+    from eav_tpu_torch.scripts import flash_variants as V
+
+    src = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    for name in V.VARIANTS:
+        assert (V.patched(name) == src) == (name == "committed"), name

@@ -117,15 +117,29 @@ def test_wrapper_runs_plain_on_cpu_and_counts_nothing(rng):
 
 
 def test_stripe_limit():
-    """The stripe of 32 rows of float32 scores bounds T on the card: T 1214
-    fits at head dim 64 in both dtypes; the limit is where one more 64-key
-    tile would pass a block's shared memory."""
-    for dtype in (torch.bfloat16, torch.float32):
-        t_max = A.onepass_max_len(dtype, 64)
-        assert t_max >= 1214
-        assert A.onepass_smem_bytes(dtype, 64, t_max) <= A.SMEM_LIMIT
-        assert A.onepass_smem_bytes(dtype, 64, t_max + 1) > A.SMEM_LIMIT
-    assert A.onepass_smem_bytes(torch.bfloat16, 64, 1214) == 4 * (32 * 1224 + 32) + 2 * (32 + 3 * 64) * 72
+    """The float32 kernel's stripe of 32 rows of float32 scores bounds its T
+    on the card: T 1214 fits at head dim 64; the limit is where one more
+    64-key tile would pass a block's shared memory."""
+    t_max = A.onepass_max_len(64)
+    assert t_max >= 1214
+    assert A.onepass_smem_bytes(64, t_max) <= A.SMEM_LIMIT
+    assert A.onepass_smem_bytes(64, t_max + 1) > A.SMEM_LIMIT
+    assert A.onepass_smem_bytes(64, 1214) == 4 * (32 * 1232 + 32 + (32 + 64) * 65)
+
+
+def test_bf16_past_the_stripe_limit_runs_the_plain_version_on_cpu(rng):
+    """The bf16 kernel keeps no stripe, so no length bound applies to it: CPU
+    bf16 tensors past the float32 limit (T 2048, 2000 real keys) run the
+    plain version and count no launch."""
+    assert A.onepass_max_len(64) < 2000
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2048, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    A.reset_launches()
+    o, lse = A.flash_onepass(q, k, v, 2000)
+    o_p, lse_p = A.flash_onepass_plain(q, k, v, 2000)
+    assert o.dtype == torch.bfloat16 and o.shape == (1, 2048, 64) and lse.shape == (1, 2048)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    assert A.flash_onepass.launches == 0
 
 
 def test_experiment_runs_on_cpu():
