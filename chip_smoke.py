@@ -37,7 +37,23 @@ Phases, each of which fails the run on error:
    finite losses, the metrics keys, trial-voted archives;
 9. the unfrozen ViT-base train step at batch 128 (uint8 56x56 frames,
    resized in the model), median time of 10 with the preset's math attention
-   and its profile, then the same step through the flash kernels.
+   and its profile, then the same step through the flash kernels;
+10. EEG path: a synthetic subject at the real shapes written with
+   ``scipy.io.savemat`` (``seg`` (10000, 30, 200) at 500 Hz, a (10, 200)
+   one-hot with the classes in turn); ``preprocess_eeg`` on the card (the
+   resample and the SOS bandpass) against a float64 scipy oracle of the
+   reference's chain (within 1e-5 of the scale), and timed alone; ``ModalityPipelines.run_eeg`` with the
+   full-width ``eegnet_subject`` (EEGNet, 30 x 500, kern 300, batch 32) and
+   ``conformer_eeg`` (12 layers, embed 40, T 488) presets, 2 epochs each on
+   the full 280 / 120 split; finite losses, the metrics keys, a confusion
+   matrix of 120, the archives' shapes, and the head's max-norm after the
+   fit;
+11. the EEG train steps at batch 32 (median of 10, peak memory): EEGNet with
+   the direct and with the FFT temporal convolution in turns (direct, FFT,
+   FFT, direct), and the conformer; a profile of the conformer's step and of
+   EEGNet's in each temporal mode, for their device ms/step. The EEG path has
+   no hand-written kernel (the conformer's attention is math at D 40, as in
+   the JAX package).
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
 float32 means float32 throughout the run. The last lines are the ``kernels``
@@ -442,10 +458,11 @@ def run_main_path() -> dict:
 # -----------------------------------------------------------------------------
 
 
-def train_step_setup(preset_name: str = "ast_finetune", attn_impl=None):
-    """(trainer, optimizer, x, y) for the full-width unfrozen step of a
-    preset: AST on (8, 1024, 128) fbanks, ViT on (128, 56, 56, 3) uint8
-    frames, as the paths feed them; ``attn_impl`` overrides the preset's."""
+def train_step_setup(preset_name: str = "ast_finetune", **model_kw):
+    """(trainer, optimizer, x, y) for the full-width unfrozen train-mode step
+    of a preset: AST on (8, 1024, 128) fbanks, ViT on (128, 56, 56, 3) uint8
+    frames, EEGNet and the conformer on (32, 30, 500) trials, as the paths
+    feed them; ``model_kw`` overrides the preset's model kwargs."""
     import dataclasses
 
     import torch
@@ -456,20 +473,23 @@ def train_step_setup(preset_name: str = "ast_finetune", attn_impl=None):
     from eav_tpu_torch.train.pipeline import build_model
 
     preset = get_preset(preset_name)
-    if attn_impl is not None:
-        ft = preset.finetune
-        preset = preset.replace(finetune=dataclasses.replace(
-            ft, model_kwargs={**ft.model_kwargs, "attn_impl": attn_impl}))
+    ft = preset.finetune
+    preset = preset.replace(finetune=dataclasses.replace(
+        ft, model_kwargs={**ft.model_kwargs, **model_kw}))
     trainer = Trainer(build_model(preset), preset.finetune, device="cuda")
+    trainer.model.train()
     opt = make_optimizer(trainer.model, preset.finetune)
     gen = torch.Generator(device="cuda").manual_seed(2)
     bs = preset.finetune.batch_size
-    if preset_name == "ast_finetune":
+    if preset.audio is not None:
         x = torch.randn(bs, 1024, 128, generator=gen, device="cuda")
-    else:
+    elif preset.vision is not None:
         side = preset.vision.face_image_size
         x = torch.randint(0, 256, (bs, side, side, 3), generator=gen, device="cuda",
                           dtype=torch.uint8)
+    else:
+        x = torch.randn(bs, preset.eeg.channels, preset.eeg.samples_per_chunk, generator=gen,
+                        device="cuda")
     y = torch.randint(0, 5, (bs,), generator=gen, device="cuda")
     for _ in range(3):  # warm-up: cuBLAS handles, allocator, optimizer state
         trainer.train_step(opt, x, y)
@@ -479,11 +499,12 @@ def train_step_setup(preset_name: str = "ast_finetune", attn_impl=None):
 
 def time_train_step(card: str, preset_name: str = "ast_finetune",
                     what: str = "AST-base, unfrozen, bs 8, bf16, flash kernels",
-                    attn_impl=None) -> None:
+                    **model_kw) -> float:
+    """Median ms of 10 train steps, printed with samples/s and peak memory."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    trainer, opt, x, y = train_step_setup(preset_name, attn_impl)
+    trainer, opt, x, y = train_step_setup(preset_name, **model_kw)
     times = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -494,17 +515,18 @@ def time_train_step(card: str, preset_name: str = "ast_finetune",
     bs = x.shape[0]
     log(f"train step ({what}): median {ms:.2f} ms of 10, {bs / ms * 1e3:.2f} samples/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    return ms
 
 
 def profile_train_step(card: str, preset_name: str = "ast_finetune", steps: int = 5,
-                       top: int = 20) -> None:
+                       top: int = 20, **model_kw) -> float:
     """Device time per step by kernel, from torch.profiler over ``steps``
-    steady-state train steps."""
+    steady-state train steps; returns the device ms per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer, opt, x, y = train_step_setup(preset_name)
+    trainer, opt, x, y = train_step_setup(preset_name, **model_kw)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -518,13 +540,15 @@ def profile_train_step(card: str, preset_name: str = "ast_finetune", steps: int 
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if not kernels or busy_ms == 0:
         log("profile: the trace holds no device time (not measured)")
-        return
-    log(f"profile of the {preset_name} step over {steps} steps on {card}: wall {wall_ms:.2f} "
+        return float("nan")
+    what = ", ".join(f"{k} {v}" for k, v in model_kw.items())
+    log(f"profile of the {preset_name} step{f' ({what})' if what else ''} over {steps} steps on {card}: wall {wall_ms:.2f} "
         f"ms/step under the profiler, device busy {busy_ms:.2f} ms/step "
         f"({100 * busy_ms / wall_ms:.1f}%)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / steps
         log(f"  {ms:8.3f} ms/step {100 * ms / busy_ms:5.1f}%  x{e.count // steps:<4d} {e.key[:110]}")
+    return busy_ms
 
 
 # -----------------------------------------------------------------------------
@@ -627,6 +651,145 @@ def run_vision_path() -> None:
         raise AssertionError(f"the confusion matrix does not count 10 trials: {m['confusion']}")
 
 
+# -----------------------------------------------------------------------------
+# 10. the EEG path: preprocess on the card, run_eeg with both EEG presets
+# -----------------------------------------------------------------------------
+
+
+def write_eeg_subject(root: str, subject: int = 1, samples: int = 10000, chans: int = 30,
+                      trials: int = 200) -> None:
+    """A synthetic subject in the EAV layout, at the real shapes:
+    subjectNN/EEG/subjectNN_eeg.mat with ``seg`` (samples, chans, trials)
+    float64 at 500 Hz, and subjectNN_eeg_label.mat with a (10, trials)
+    one-hot whose rows come in turn (the listening rows 1, 3, 5, 7, 9 give
+    100 trials, 400 chunks, 80 a class)."""
+    import numpy as np
+    import scipy.io
+
+    rng = np.random.default_rng(subject)
+    edir = os.path.join(root, f"subject{subject:02d}", "EEG")
+    os.makedirs(edir)
+    name = f"subject{subject:02d}"
+    scipy.io.savemat(os.path.join(edir, f"{name}_eeg.mat"),
+                     {"seg": rng.standard_normal((samples, chans, trials))})
+    label = np.zeros((10, trials))
+    label[np.arange(trials) % 10, np.arange(trials)] = 1
+    scipy.io.savemat(os.path.join(edir, f"{name}_eeg_label.mat"), {"label": label})
+
+
+def eeg_oracle(seg, cfg):
+    """The reference's chain (`Dataload_eeg.py:85-139`) in float64 with
+    scipy and MATLAB F-order reshapes: (ch, t, tri) -> (ch, 500, 4 tri)."""
+    import numpy as np
+    import scipy.signal as sps
+
+    ch, t, tri = seg.shape
+    down = cfg.fs_orig // cfg.fs_target
+    flat = sps.resample_poly(np.reshape(seg, (ch, t * tri), order="F"), 1, down, axis=1)
+    sos = sps.butter(cfg.butter_order, cfg.band, btype="bandpass", fs=cfg.fs_target,
+                     output="sos")
+    new_t = t // down
+    seg_f = sps.sosfilt(sos, flat, axis=1).reshape((ch, new_t, tri), order="F")
+    chunk = cfg.samples_per_chunk
+    k = new_t // chunk
+    return seg_f.reshape((ch, chunk, k, tri), order="F").reshape((ch, chunk, k * tri), order="F")
+
+
+def check_eeg_preprocess(root: str, card: str) -> None:
+    """``preprocess_eeg`` on the card in float32 against the float64 oracle,
+    within 1e-5 of the scale (a sound float32 run reads about 5e-7; a fault
+    in the carries or the resample, or bf16 products, reads far above),
+    then timed alone: median of 5 after a warm-up, host clock around a
+    synchronize."""
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import EEGPreprocConfig
+    from eav_tpu_torch.ingest.eeg import DataLoadEEG, preprocess_eeg
+
+    cfg = EEGPreprocConfig()
+    seg, _ = DataLoadEEG(1, cfg, root, device="cuda").load_mat()
+    x = torch.as_tensor(np.ascontiguousarray(seg)).to("cuda", torch.float32)
+    got = preprocess_eeg(x, cfg).cpu().numpy()
+    want = eeg_oracle(seg, cfg)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / scale
+    if not (got.shape == want.shape == (30, 500, 800) and np.isfinite(got).all() and err < 1e-5):
+        raise AssertionError(f"preprocess_eeg on the card: shape {got.shape}, rel err {err}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preprocess_eeg(x, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"preprocess_eeg on the card, (30, 10000, 200) float32 -> (30, 500, 800): max abs err "
+        f"{err:.3g} of the scale against float64 scipy (tol 1e-5); median "
+        f"{statistics.median(times[1:]) * 1e3:.2f} ms of 5 (resample + order-5 SOS bandpass "
+        f"over 30 x 400000 samples); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+
+
+def run_eeg_path(card: str) -> None:
+    """``run_eeg`` with the full-width EEGNet and conformer presets, 2 epochs
+    each, on one synthetic subject; the conformer reads the trials EEGNet's
+    run cached."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.train.pipeline import ModalityPipelines
+
+    presets = {}
+    for key, name in (("eeg", "eegnet_subject"), ("eeg_conformer", "conformer_eeg")):
+        base = get_preset(name)
+        phase = dataclasses.replace(base.finetune.phases[0], epochs=2)
+        presets[key] = base.replace(finetune=dataclasses.replace(base.finetune, phases=(phase,)))
+    bounds = {"eeg": {"head.weight": 1.0, "conv_depthwise.weight": 1.0},
+              "eeg_conformer": {"head.weight": 0.5}}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_eeg_subject(os.path.join(root, "EAV"))
+        log(f"synthetic EEG subject written: {time.perf_counter() - t0:.1f} s")
+        check_eeg_preprocess(os.path.join(root, "EAV"), card)
+        logits = os.path.join(root, "logits")
+        pipes = ModalityPipelines(os.path.join(root, "EAV"), cache_dir=os.path.join(root, "cache"),
+                                  logits_dir=logits, presets=presets, device="cuda")
+        for key in presets:
+            t0 = time.perf_counter()
+            res = pipes.run_eeg(1, key)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            test_arch = np.load(os.path.join(logits, f"s01_{key}_test.npy"))
+            train_arch = np.load(os.path.join(logits, f"s01_{key}_train.npy"))
+            hist, m, params = res.artifacts["history"], res.metrics, res.artifacts["params"]
+            norms = {n: float(params[n].flatten(1).norm(dim=1).max()) for n in bounds[key]}
+            log(f"run_eeg ({presets[key].name}, full width, float32, 2 epochs, 280 train / 120 "
+                f"test): {wall:.1f} s; losses {hist['loss'].tolist()}, train acc "
+                f"{hist['train_acc'].tolist()}, test acc {hist['test_acc'].tolist()}, accuracy "
+                f"{m['accuracy']}, load {m['load_seconds']} s, fit {m['fit_seconds']} s, "
+                f"{m['samples_per_sec']} samples/s, archive {m['archive_seconds']} s; archives "
+                f"test {test_arch.shape}, train {train_arch.shape}; max row norms {norms} "
+                f"(max-norm {bounds[key]}) on {card}")
+            if not (np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2):
+                raise AssertionError(f"bad loss history {hist['loss']}")
+            if set(m) != METRICS_KEYS:
+                raise AssertionError(f"metrics keys {sorted(m)} != {sorted(METRICS_KEYS)}")
+            if sum(map(sum, m["confusion"])) != 120:
+                raise AssertionError(f"the confusion matrix does not count 120: {m['confusion']}")
+            if test_arch.shape != (120, 5) or train_arch.shape != (280, 5):
+                raise AssertionError(f"archive shapes {test_arch.shape}, {train_arch.shape}")
+            if not np.isfinite(test_arch).all():
+                raise AssertionError("non-finite test logits")
+            for n, bound in bounds[key].items():
+                if norms[n] > bound * (1 + 1e-5):
+                    raise AssertionError(f"{n} row norm {norms[n]} above its max-norm {bound}")
+
+
 def main() -> int:
     import torch
 
@@ -634,6 +797,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from eav_tpu_torch.core.config import get_preset
     from eav_tpu_torch.ops import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -643,7 +807,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}; TF32 off for matmuls and cuDNN")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.build("flash_attention")
     log(f"build: {time.perf_counter() - t0:.1f} s")
     usage = build.resource_usage("flash_attention")
@@ -679,6 +843,25 @@ def main() -> int:
     # whether the flash kernels should serve T 197: the same step through K1-K3
     time_train_step(card, "vit_finetune", f"{vit_step}, flash kernels", attn_impl="flash")
 
+    run_eeg_path(card)
+    eeg_step = "EEGNet (eegnet_subject), bs 32, 30 x 500, kern 300, float32, train mode"
+    step_ms = {"conv": [], "fft": []}
+    for mode in ("conv", "fft", "fft", "conv"):  # in turns, on one card
+        step_ms[mode].append(time_train_step(card, "eegnet_subject",
+                                             f"{eeg_step}, temporal_mode {mode}",
+                                             temporal_mode=mode))
+    log(f"EEGNet step, fft / conv in turns: "
+        f"{step_ms['fft'][0] / step_ms['conv'][0]:.3f}, {step_ms['fft'][1] / step_ms['conv'][1]:.3f} "
+        f"(the preset takes {get_preset('eegnet_subject').finetune.model_kwargs['temporal_mode']!r})")
+    device_ms = {mode: profile_train_step(card, "eegnet_subject", top=12, temporal_mode=mode)
+                 for mode in ("conv", "fft")}
+    log(f"EEGNet step, device ms/step under the profiler: conv {device_ms['conv']:.3f}, fft "
+        f"{device_ms['fft']:.3f} (fft / conv {device_ms['fft'] / device_ms['conv']:.3f})")
+    time_train_step(card, "conformer_eeg",
+                    "EEG conformer (conformer_eeg), bs 32, 12 layers, embed 40, T 488, float32, "
+                    "math attention, train mode")
+    profile_train_step(card, "conformer_eeg", top=12)
+
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():
         ms, ms_run, plain, lib, lib_run = times[n]
@@ -689,6 +872,7 @@ def main() -> int:
             "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": lib,
             "library_ms_run": lib_run,
         })
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""Dataclass configs and the ``ast_finetune`` and ``vit_finetune`` presets.
+"""Dataclass configs and the ``ast_finetune``, ``vit_finetune``,
+``eegnet_subject`` and ``conformer_eeg`` presets.
 
-A copy of the parts of ``eav_tpu/core/config.py`` that the audio and vision
-fine-tunes need: the same field names and defaults, without the fields of
-model families the port does not run yet. ``VisionPreprocConfig`` is copied
-whole, so its hash (the vision cache key) equals the JAX package's.
-``model_kwargs`` maps the presets' dtype names to torch dtypes.
+A copy of the parts of ``eav_tpu/core/config.py`` that the audio, vision and
+EEG fine-tunes need: the same field names and defaults, without the fields of
+model families the port does not run yet. ``EEGPreprocConfig`` and
+``VisionPreprocConfig`` are copied whole, so their hashes (the cache keys)
+equal the JAX package's. ``model_kwargs`` maps the presets' dtype names to
+torch dtypes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ EMOTION_TO_INDEX: Dict[str, int] = {
 }
 NUM_CLASSES = 5
 
+# One-hot rows of the label .mat that correspond to the *listening* tasks kept
+# by the EEG pipeline (reference `Dataload_eeg.py:33`).
+EEG_SELECTED_CLASSES: Tuple[int, ...] = (1, 3, 5, 7, 9)
+
 
 @dataclass(frozen=True)
 class SplitConfig:
@@ -33,6 +39,39 @@ class SplitConfig:
 
     h_idx: int = 56
     num_classes: int = NUM_CLASSES
+
+
+@dataclass(frozen=True)
+class EEGPreprocConfig:
+    """EEG ingest: .mat -> (400, 30, 500) trials.
+
+    Mirrors reference `Dataload_eeg.py:85-152`: polyphase downsample
+    500->100 Hz on the F-order-flattened continuous signal, order-5 Butterworth
+    SOS bandpass per channel, 20 s trials split into 4 x 5 s chunks (F-order),
+    keep listening classes only.
+    """
+
+    fs_orig: int = 500
+    fs_target: int = 100
+    band: Tuple[float, float] = (0.5, 45.0)
+    butter_order: int = 5
+    channels: int = 30
+    trial_seconds: float = 20.0
+    chunk_seconds: float = 5.0
+    selected_classes: Tuple[int, ...] = EEG_SELECTED_CLASSES
+    # The Keras notebook pipeline filters at the ORIGINAL rate before
+    # downsampling (`CNN_EEG_tf.py` commented block / `EEG_nb.ipynb` cell4,
+    # band [3, 50]), the torch pipeline downsamples first
+    # (`Dataload_eeg.py:156-158`) — SURVEY.md C8 order discrepancy.
+    filter_before_downsample: bool = False
+
+    @property
+    def chunks_per_trial(self) -> int:
+        return int(round(self.trial_seconds / self.chunk_seconds))
+
+    @property
+    def samples_per_chunk(self) -> int:
+        return int(round(self.chunk_seconds * self.fs_target))
 
 
 @dataclass(frozen=True)
@@ -81,8 +120,15 @@ class PhaseConfig:
 
 @dataclass(frozen=True)
 class FinetuneConfig:
-    """Trainer hyper-parameters (AdamW; the optimizer of the AST preset).
+    """Trainer hyper-parameters.
 
+    ``optimizer`` 'adamw' decays weights by ``weight_decay``, 'adam' does not
+    (core/optim.py). ``compat_softmax`` takes the cross-entropy of
+    softmax(logits), the reference's double softmax (`EEGNet_tor.py:44,66`
+    + `:81`). ``compat_sticky_eval`` trains a phase's first epoch in train
+    mode and every later one in eval mode (dropout off, BatchNorm reading and
+    not updating its running stats), as the reference's ``Trainer_uni``
+    leaves the module after its first ``validate()`` (`EEGNet_tor.py:96-135`).
     ``shuffle=False`` batches in order every epoch (the trajectory parity
     tests use it); ``cache_frozen_features`` runs a frozen phase on cached
     backbone features when that is the same math (train/loop.py)."""
@@ -90,6 +136,7 @@ class FinetuneConfig:
     model: str
     batch_size: int
     phases: Tuple[PhaseConfig, ...]
+    optimizer: str = "adamw"  # 'adamw' | 'adam'
     weight_decay: float = 1e-5
     eval_batch_size: Optional[int] = None
     # Per-trial aggregation for per-frame models (`Transformer_Vision.py:170-188`):
@@ -99,6 +146,8 @@ class FinetuneConfig:
     # 'majority' = per-frame argmax + mode (the Keras video notebook).
     vote_mode: str = "mean"
     seed: int = 0
+    compat_softmax: bool = False
+    compat_sticky_eval: bool = False
     shuffle: bool = True
     cache_frozen_features: bool = True
     model_kwargs: Dict[str, Any] = field(default_factory=dict)
@@ -114,6 +163,7 @@ class PresetConfig:
     description: str
     split: SplitConfig
     finetune: FinetuneConfig
+    eeg: Optional[EEGPreprocConfig] = None
     audio: Optional[AudioPreprocConfig] = None
     vision: Optional[VisionPreprocConfig] = None
 
@@ -166,7 +216,48 @@ def _vit_finetune() -> FinetuneConfig:
     )
 
 
+def _eegnet_finetune() -> FinetuneConfig:
+    # Reference `Dataload_eeg.py:250-256`: Adam lr=1e-5, bs=32, 200 epochs,
+    # no freeze protocol (trained from scratch); the double softmax and
+    # Trainer_uni's sticky eval mode of the published trajectory. The
+    # temporal conv is the direct convolution: chip_smoke.py times and
+    # profiles the step in both temporal modes on the card; the FFT takes
+    # less device time, but the step is host-bound and its wall time the
+    # same in both (PERF.md sections 5-6).
+    return FinetuneConfig(
+        model="eegnet",
+        batch_size=32,
+        optimizer="adam",
+        weight_decay=0.0,
+        phases=(PhaseConfig(epochs=200, lr=1e-5, freeze=False),),
+        compat_softmax=True,
+        compat_sticky_eval=True,
+        model_kwargs={"temporal_mode": "conv"},
+    )
+
+
+def _conformer_finetune() -> FinetuneConfig:
+    # Reference `Transformer_EEG.py:239-247`: Adam 1e-3, bs 32, 485 epochs,
+    # post-step fc renorm maxnorm=0.5 (the model's maxnorm_rules).
+    return FinetuneConfig(
+        model="conformer_eeg",
+        batch_size=32,
+        optimizer="adam",
+        weight_decay=0.0,
+        phases=(PhaseConfig(epochs=485, lr=1e-3, freeze=False),),
+        compat_softmax=True,
+    )
+
+
 PRESETS: Dict[str, PresetConfig] = {
+    # BASELINE.json config 1
+    "eegnet_subject": PresetConfig(
+        name="eegnet_subject",
+        description="EEGNet on one subject's EEG (.mat, 200 trials x 30ch x 10k), CPU-runnable",
+        split=SplitConfig(),
+        eeg=EEGPreprocConfig(),
+        finetune=_eegnet_finetune(),
+    ),
     "ast_finetune": PresetConfig(
         name="ast_finetune",
         description="AST-audioset fine-tune per subject (freeze 10ep -> unfreeze 15ep, bs=8)",
@@ -180,6 +271,13 @@ PRESETS: Dict[str, PresetConfig] = {
         split=SplitConfig(),
         vision=VisionPreprocConfig(face_detection=True),
         finetune=_vit_finetune(),
+    ),
+    "conformer_eeg": PresetConfig(
+        name="conformer_eeg",
+        description="ShallowConvNet+Transformer EEG hybrid (Transformer_EEG.py)",
+        split=SplitConfig(),
+        eeg=EEGPreprocConfig(),
+        finetune=_conformer_finetune(),
     ),
 }
 

@@ -1,4 +1,4 @@
-"""Freeze masks and the AdamW of the fine-tune protocol.
+"""Freeze masks, the Adam(W) of the fine-tune protocol and max-norm projection.
 
 The reference keeps ONE torch AdamW across the freeze -> unfreeze phases
 (`Transformer_Audio.py:30,45-48`). Frozen parameters have
@@ -7,13 +7,14 @@ no moment update, no weight decay, and no advance of their step count, so
 bias correction starts afresh when they unfreeze. ``torch.optim.AdamW`` with
 ``requires_grad`` toggled per phase is exactly the per-leaf-count update of
 ``eav_tpu/core/optim.py`` (``adam_update``). Weight decay is the reference's
-effective torch default, 0.01 in the AST preset, on every trainable parameter.
+effective torch default, 0.01 in the AST preset, on every trainable parameter;
+``optimizer='adam'`` (the EEG presets) decays nothing.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -46,8 +47,27 @@ def set_trainable(model: nn.Module, freeze: bool, head_regex: str = HEAD_REGEX) 
 
 
 def make_optimizer(model: nn.Module, cfg: FinetuneConfig) -> torch.optim.AdamW:
-    """One AdamW over every parameter for the whole fit; each phase sets its lr."""
+    """One Adam(W) over every parameter for the whole fit; each phase sets
+    its lr. 'adam' is AdamW without weight decay, as the JAX trainer passes
+    weight_decay 0 for it (`eav_tpu/train/loop.py:341`)."""
+    if cfg.optimizer not in ("adamw", "adam"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return torch.optim.AdamW(
         model.parameters(), lr=cfg.phases[0].lr, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=cfg.weight_decay,
+        weight_decay=cfg.weight_decay if cfg.optimizer == "adamw" else 0.0,
     )
+
+
+@torch.no_grad()
+def maxnorm_project(model: nn.Module, rules: Sequence[Tuple[str, float, Tuple[int, ...]]]) -> None:
+    """Rescale in place each parameter whose name matches a rule's regex onto
+    the L2 ball of radius ``maxnorm``, the norm taken over the rule's dims
+    (per output unit): ``p *= min(1, maxnorm / max(norm, 1e-12))``, the JAX
+    package's formula (`eav_tpu/core/optim.py:137-157`) for torch's
+    ``renorm_`` hooks and post-step clamps."""
+    compiled = [(re.compile(rx), mn, dims) for rx, mn, dims in rules]
+    for name, p in model.named_parameters():
+        for rx, mn, dims in compiled:
+            if rx.search(name):
+                norm = p.square().sum(dim=dims, keepdim=True).sqrt()
+                p.mul_(torch.clamp(mn / norm.clamp_min(1e-12), max=1.0))

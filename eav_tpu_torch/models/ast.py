@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from eav_tpu_torch.core.optim import HEAD_REGEX
+from eav_tpu_torch.models.dropout import Dropout
 from eav_tpu_torch.models.transformer import (
     PatchProj,
     TransformerEncoder,
@@ -73,7 +74,7 @@ class AST(nn.Module):
             self.cls_token = nn.Parameter(torch.empty(1, 1, hidden))
             self.dist_token = nn.Parameter(torch.empty(1, 1, hidden))
             self.pos_embed = nn.Parameter(torch.empty(1, self.num_patches + 2, hidden))
-            self.pos_drop = nn.Dropout(dropout)
+            self.pos_drop = Dropout(dropout)
             self.encoder = TransformerEncoder(
                 hidden, layers, heads, mlp_dim, eps, dropout, attn_impl, compute_dtype, remat
             )

@@ -1,13 +1,18 @@
-"""Weights across: the JAX package's Flax AST and ViT parameters -> the port's
-state_dicts.
+"""Weights across: the JAX package's Flax AST, ViT, EEGNet and EEG conformer
+parameters -> the port's state_dicts.
 
 The port keeps the Flax names, so the mapping is mechanical:
 
 - a Dense kernel (in, out) becomes a Linear weight (out, in);
 - the fused qkv kernel (in, 3, hidden) becomes weight (3*hidden, in), rows
   ordered q, k, v, and its bias (3, hidden) becomes (3*hidden,);
-- the patch conv kernel goes from HWIO to OIHW;
-- LayerNorm ``scale``/``bias`` become ``weight``/``bias``.
+- a conv kernel goes from HWIO to OIHW, a grouped one too (EEGNet's
+  depthwise (C, 1, 1, 64) becomes (64, 1, C, 1));
+- LayerNorm and BatchNorm ``scale``/``bias`` become ``weight``/``bias``, and
+  BatchNorm's ``batch_stats`` ``mean``/``var`` its running stats;
+- the EEG heads read a flattened feature map: Flax flattens NHWC (position
+  major), the port NCHW (feature major), so their input columns are
+  permuted.
 """
 
 from __future__ import annotations
@@ -32,11 +37,32 @@ def _norm(sd: dict, prefix: str, tree: Mapping[str, Any]) -> None:
     sd[f"{prefix}.bias"] = _t(tree["bias"])
 
 
+def _conv(sd: dict, prefix: str, tree: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+
+
+def _batch_norm(sd: dict, prefix: str, params: Mapping[str, Any],
+                stats: Mapping[str, Any]) -> None:
+    _norm(sd, prefix, params)
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _head_nchw(kernel, features: int) -> torch.Tensor:
+    """A Dense kernel (positions*features, out) over an NHWC flatten -> the
+    Linear weight (out, features*positions) over the NCHW flatten."""
+    k = np.asarray(kernel)
+    out = k.shape[1]
+    k = k.reshape(-1, features, out).transpose(1, 0, 2).reshape(-1, out)
+    return _t(k.T)
+
+
 def _backbone(params: Mapping[str, Any], tokens) -> Dict[str, torch.Tensor]:
     """The patch conv, the learned tokens named ``tokens``, the encoder and
     ``final_ln``: what AST and ViT share."""
     sd: Dict[str, torch.Tensor] = {}
-    sd["patch_proj.weight"] = _t(np.asarray(params["patch_proj"]["kernel"]).transpose(3, 2, 0, 1))
+    _conv(sd, "patch_proj", params["patch_proj"])
     sd["patch_proj.bias"] = _t(params["patch_proj"]["bias"])
     for name in tokens:
         sd[name] = _t(params[name])
@@ -69,4 +95,42 @@ def vit_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     strictly (the patch kernel's input channels are RGB)."""
     sd = _backbone(params, ("cls_token", "pos_embed"))
     _dense(sd, "classifier", params["classifier"])
+    return sd
+
+
+def eegnet_params_from_jax(params: Mapping[str, Any],
+                           batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax EEGNet ``params`` and ``batch_stats`` -> a state_dict that
+    ``EEGNet.load_state_dict`` takes strictly (either ``separable_mode``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("conv_temporal", "conv_depthwise", "conv_separable",
+                 "conv_sep_depthwise", "conv_sep_pointwise"):
+        if name in params:
+            _conv(sd, name, params[name])
+    for name in ("bn_temporal", "bn_depthwise", "bn_separable"):
+        _batch_norm(sd, name, params[name], batch_stats[name])
+    f2 = np.asarray(params["bn_separable"]["scale"]).shape[0]
+    sd["head.weight"] = _head_nchw(params["head"]["kernel"], f2)
+    sd["head.bias"] = _t(params["head"]["bias"])
+    return sd
+
+
+def conformer_params_from_jax(params: Mapping[str, Any],
+                              batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ConformerEEG ``params`` and ``batch_stats`` -> a state_dict that
+    ``ConformerEEG.load_state_dict`` takes strictly."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_temporal", params["conv_temporal"])
+    sd["spatial_proj"] = _t(params["spatial_proj"])
+    layers = sorted((k for k in params if k.startswith("layer_")), key=lambda k: int(k[6:]))
+    for i, name in enumerate(layers):
+        layer, pre = params[name], f"layers.{i}"
+        for w in ("wq", "wk", "wv"):
+            sd[f"{pre}.attn.{w}.weight"] = _t(np.asarray(layer["attn"][w]["kernel"]).T)
+        _norm(sd, f"{pre}.norm1", layer["norm1"])
+        _dense(sd, f"{pre}.fc1", layer["fc1"])
+        _dense(sd, f"{pre}.fc2", layer["fc2"])
+        _norm(sd, f"{pre}.norm2", layer["norm2"])
+    _batch_norm(sd, "bn", params["bn"], batch_stats["bn"])
+    sd["head.weight"] = _head_nchw(params["head"]["kernel"], np.asarray(params["bn"]["scale"]).shape[0])
     return sd

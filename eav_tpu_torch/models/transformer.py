@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from eav_tpu_torch.models.dropout import Dropout, replay_generators
 from eav_tpu_torch.ops.attention import flash_attention
 
 ATTN_IMPLS = ("math", "flash", "auto")
@@ -117,7 +118,7 @@ class TransformerLayer(nn.Module):
         self.ln2 = nn.LayerNorm(hidden, eps=eps)
         self.fc1 = nn.Linear(hidden, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, hidden)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def _attn_block(self, x: torch.Tensor) -> torch.Tensor:
         return self.drop(self.attn(layer_norm(x, self.ln1, self.dtype)))
@@ -131,9 +132,11 @@ class TransformerLayer(nn.Module):
         attn, mlp = self._attn_block, self._mlp_block
         if torch.is_grad_enabled():
             if self.remat in ("attn", "full"):
-                attn = functools.partial(checkpoint, self._attn_block, use_reentrant=False)
+                attn = functools.partial(checkpoint, replay_generators(self._attn_block, self),
+                                         use_reentrant=False)
             if self.remat == "full":
-                mlp = functools.partial(checkpoint, self._mlp_block, use_reentrant=False)
+                mlp = functools.partial(checkpoint, replay_generators(self._mlp_block, self),
+                                        use_reentrant=False)
         x = x + attn(x).to(x.dtype)
         return x + mlp(x).to(x.dtype)
 

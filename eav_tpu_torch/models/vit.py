@@ -23,6 +23,7 @@ from torch import nn
 
 from eav_tpu_torch.core.optim import HEAD_REGEX
 from eav_tpu_torch.models.ast import MODES
+from eav_tpu_torch.models.dropout import Dropout
 from eav_tpu_torch.models.transformer import (
     PatchProj,
     TransformerEncoder,
@@ -68,7 +69,7 @@ class ViT(nn.Module):
             self.patch_proj = PatchProj(3, hidden, patch_size, (patch_size, patch_size))
             self.cls_token = nn.Parameter(torch.empty(1, 1, hidden))
             self.pos_embed = nn.Parameter(torch.empty(1, self.num_patches + 1, hidden))
-            self.pos_drop = nn.Dropout(dropout)
+            self.pos_drop = Dropout(dropout)
             self.encoder = TransformerEncoder(
                 hidden, layers, heads, mlp_dim, eps, dropout, attn_impl, compute_dtype, remat
             )

@@ -11,7 +11,14 @@ Protocol, as in the JAX trainer and the reference (`Transformer_Audio.py`):
   logits are ``outputs_test``;
 - the frozen-feature cache: a frozen phase of a model with a
   features/head split runs on the pooled backbone features computed once
-  (``_frozen_cache_ok`` says when that is the same math).
+  (``_frozen_cache_ok`` says when that is the same math);
+- the model's ``maxnorm_rules`` (EEGNet, the EEG conformer) projected after
+  every optimizer step;
+- ``compat_softmax`` (the loss of softmax(logits)) and
+  ``compat_sticky_eval`` (a phase's epochs after its first train with the
+  model in eval mode), the reference's quirks the EEG presets replicate;
+- dropout masks from one generator on the trainer's device, seeded per fit
+  (``models/dropout.py``), so a fit is deterministic under its seed.
 
 PyTorch runs eagerly, so the JAX trainer's XLA and TPU devices (phase
 programs compiled with ``lax.scan``, chunked epochs, device placement
@@ -30,7 +37,8 @@ from torch import nn
 
 from eav_tpu_torch.core.config import FinetuneConfig
 from eav_tpu_torch.core.device import resolve_device
-from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, set_trainable
+from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, maxnorm_project, set_trainable
+from eav_tpu_torch.models.dropout import set_generator
 
 
 class TrainResult(NamedTuple):
@@ -39,15 +47,22 @@ class TrainResult(NamedTuple):
     outputs_test: np.ndarray  # (n_test, num_classes) final-phase logits
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  compat_softmax: bool = False) -> torch.Tensor:
     """Mean cross-entropy in float32 (the JAX trainer's weighted mean with
-    unit weights)."""
-    return F.cross_entropy(logits.float(), labels)
+    unit weights). ``compat_softmax`` replicates the reference's double
+    softmax (a Softmax layer feeding CrossEntropyLoss, `EEGNet_tor.py:44,66`
+    + `:81`): the CE of log_softmax(softmax(logits))."""
+    z = logits.float()
+    if compat_softmax:
+        z = z.softmax(-1)
+    return F.cross_entropy(z, labels)
 
 
 class Trainer:
     """Two-phase fine-tune runner for a model with the (B, ...) ->
-    (B, num_classes) contract and a ``reset_parameters(generator)`` method."""
+    (B, num_classes) contract and a ``reset_parameters(generator)`` method;
+    its optional ``maxnorm_rules`` are projected after every step."""
 
     def __init__(self, model: nn.Module, cfg: FinetuneConfig,
                  head_regex: str = HEAD_REGEX, device="cuda"):
@@ -55,19 +70,26 @@ class Trainer:
         self.model = model.to(self.device)
         self.cfg = cfg
         self.head_regex = head_regex
+        self.maxnorm_rules = tuple(getattr(model, "maxnorm_rules", ()))
 
     def _frozen_cache_ok(self) -> bool:
         """A frozen phase may run on cached backbone features only when that
         is the same math: the model declares the split, the trainer's
         head_regex IS the model's head set (a superset would decay parameters
-        the head never touches), and the backbone is deterministic (no
-        dropout)."""
+        the head never touches), the backbone is deterministic (no dropout),
+        and no max-norm projection touches frozen parameters."""
         return bool(
             self.cfg.cache_frozen_features
             and getattr(self.model, "supports_head_mode", False)
             and self.head_regex == getattr(self.model, "head_mode_regex", None)
             and getattr(self.model, "dropout", 1.0) == 0.0
+            and not self.maxnorm_rules
         )
+
+    def _apply(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        """The model on ``x``; only a model with a features/head split takes
+        a ``mode``."""
+        return self.model(x) if mode == "full" else self.model(x, mode=mode)
 
     def _to_device(self, x) -> torch.Tensor:
         """On the trainer's device: uint8 frames stay uint8 (a model with
@@ -80,7 +102,7 @@ class Trainer:
         self.model.eval()
         n = x.shape[0]
         bs = min(batch_size or self.cfg.eval_batch_size, n)
-        return torch.cat([self.model(x[i : i + bs], mode=mode) for i in range(0, n, bs)])
+        return torch.cat([self._apply(x[i : i + bs], mode) for i in range(0, n, bs)])
 
     def _load(self, params) -> None:
         if params is not None:
@@ -100,14 +122,16 @@ class Trainer:
 
     def train_step(self, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor,
                    mode: str = "full"):
-        """One optimizer step on one batch -> (loss, correct count), both
-        still on the device."""
-        self.model.train()
-        logits = self.model(x, mode=mode)
-        loss = cross_entropy(logits, y)
+        """One optimizer step on one batch, in the mode (train or eval) the
+        model is in, then the max-norm projection -> (loss, correct count),
+        both still on the device."""
+        logits = self._apply(x, mode)
+        loss = cross_entropy(logits, y, self.cfg.compat_softmax)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
+        if self.maxnorm_rules:
+            maxnorm_project(self.model, self.maxnorm_rules)
         return loss.detach(), (logits.detach().argmax(-1) == y).sum()
 
     def fit(self, data, seed: Optional[int] = None,
@@ -121,7 +145,9 @@ class Trainer:
         tr_y = torch.as_tensor(np.asarray(data[1]).reshape(-1), dtype=torch.long, device=self.device)
         te_y = torch.as_tensor(np.asarray(data[3]).reshape(-1), dtype=torch.long, device=self.device)
         n_train = tr_x.shape[0]
-        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+        seed = cfg.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(seed)  # init and batch order, on the CPU
+        set_generator(self.model, torch.Generator(device=self.device).manual_seed(seed))
         self.model.reset_parameters(gen)
         if init_params is not None:
             unexpected = self.model.load_state_dict(init_params, strict=False).unexpected_keys
@@ -141,7 +167,10 @@ class Trainer:
                 px, pe = self.extract_features(tr_x), self.extract_features(te_x)
             else:
                 mode, px, pe = "full", tr_x, te_x
-            for _ in range(phase.epochs):
+            for epoch in range(phase.epochs):
+                # Trainer_uni's sticky eval mode: after the phase's first
+                # epoch, train with dropout off and BN on its running stats
+                self.model.train(not (cfg.compat_sticky_eval and epoch > 0))
                 if cfg.shuffle:
                     perm = torch.randperm(n_train, generator=gen).to(self.device)
                 else:

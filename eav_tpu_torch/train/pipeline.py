@@ -1,12 +1,13 @@
 """The per-(subject, modality) tasks: ingest -> EAV split -> fine-tune ->
-metrics, as ``eav_tpu/train/pipeline.py`` runs them for the ``ast_finetune``
-(audio) and ``vit_finetune`` (vision) presets.
+metrics, as ``eav_tpu/train/pipeline.py`` runs them for the ``eegnet_subject``
+and ``conformer_eeg`` (EEG), ``ast_finetune`` (audio) and ``vit_finetune``
+(vision) presets.
 
-Preprocessed fbanks and decoded frame stacks are cached as ``.npz`` per
-(subject, config hash) when a cache directory is given, under the JAX
-package's keys, and read back through ``fast_npz_load``; logits are archived
-per subject when a logits directory is given (the vision ones trial-voted).
-The metrics row has the JAX package's keys.
+Preprocessed EEG trials, fbanks and decoded frame stacks are cached as
+``.npz`` per (subject, config hash) when a cache directory is given, under
+the JAX package's keys, and read back through ``fast_npz_load``; logits are
+archived per subject when a logits directory is given (the vision ones
+trial-voted). The metrics row has the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from eav_tpu_torch.core import metrics as M
 from eav_tpu_torch.core.config import (
     NUM_CLASSES,
     AudioPreprocConfig,
+    EEGPreprocConfig,
     PresetConfig,
     VisionPreprocConfig,
     get_preset,
@@ -33,12 +35,17 @@ from eav_tpu_torch.core.config import (
 from eav_tpu_torch.core.device import resolve_device
 from eav_tpu_torch.core.sweep import TaskResult
 from eav_tpu_torch.ingest.split import eav_split
-from eav_tpu_torch.train.loop import Trainer
+from eav_tpu_torch.train.loop import Trainer, TrainResult
 
 
 def default_presets() -> Dict[str, PresetConfig]:
     """Modality key -> preset, for the modalities the port runs so far."""
-    return {"audio": get_preset("ast_finetune"), "vision": get_preset("vit_finetune")}
+    return {
+        "eeg": get_preset("eegnet_subject"),
+        "eeg_conformer": get_preset("conformer_eeg"),
+        "audio": get_preset("ast_finetune"),
+        "vision": get_preset("vit_finetune"),
+    }
 
 
 def _cfg_hash(cfg) -> str:
@@ -72,6 +79,14 @@ def _cached(cache_dir: Optional[str], key: str,
 def build_model(preset: PresetConfig):
     """The model of a preset's finetune config."""
     name = preset.finetune.model
+    if name == "eegnet":
+        from eav_tpu_torch.models.eegnet import EEGNet
+
+        return EEGNet(**model_kwargs(preset))
+    if name == "conformer_eeg":
+        from eav_tpu_torch.models.conformer_eeg import ConformerEEG
+
+        return ConformerEEG(**model_kwargs(preset))
     if name == "ast":
         from eav_tpu_torch.models.ast import AST
 
@@ -110,6 +125,18 @@ class ModalityPipelines:
             t = Trainer(build_model(preset), preset.finetune, device=self.device)
             self._trainers[preset_key] = t
         return t
+
+    def load_eeg(self, subject: int, preset_key: str = "eeg"):
+        """(trials (N, ch, samples), labels) of a subject's EEG, preprocessed
+        on the pipelines' device."""
+        cfg = self.presets[preset_key].eeg or EEGPreprocConfig()
+
+        def compute():
+            from eav_tpu_torch.ingest.eeg import DataLoadEEG
+
+            return DataLoadEEG(subject, cfg, self.data_root, device=self.device).prepare_data()
+
+        return _cached(self.cache_dir, f"s{subject:02d}_eeg_{_cfg_hash(cfg)}", compute)
 
     def load_audio(self, subject: int):
         """(fbanks (N, frames, mels), labels) of a subject's 5 s segments."""
@@ -182,22 +209,21 @@ class ModalityPipelines:
             metrics=metrics, artifacts={"params": result.params, "history": result.history}
         )
 
-    def _load_split_audio(self, subject: int):
-        """(tr_x, tr_y, te_x, te_y): features as float32 tensors on the
-        device (one host-to-device copy, shared by fit and the archive
-        predict), labels as arrays."""
-        split = self.presets["audio"].split
-        x, y = self.load_audio(subject)
-        tr_x, tr_y, te_x, te_y = eav_split(x, y, h_idx=split.h_idx, num_classes=split.num_classes)
-        to_dev = lambda a: torch.as_tensor(a, dtype=torch.float32).to(self.device)  # noqa: E731
-        return to_dev(tr_x), tr_y, to_dev(te_x), te_y
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32).to(self.device)
 
-    def run_audio(self, subject: int) -> TaskResult:
-        """The AST fine-tune of one subject (the ``audio`` preset)."""
-        key = "audio"
-        t0 = time.perf_counter()
-        data = self._load_split_audio(subject)
-        load_s = time.perf_counter() - t0
+    def _load_split_eeg(self, subject: int, preset_key: str):
+        """(tr_x, tr_y, te_x, te_y): trials as float32 tensors on the device,
+        labels as arrays."""
+        split = self.presets[preset_key].split
+        x, y = self.load_eeg(subject, preset_key)
+        tr_x, tr_y, te_x, te_y = eav_split(x, y, h_idx=split.h_idx, num_classes=split.num_classes)
+        return self._to_device(tr_x), tr_y, self._to_device(te_x), te_y
+
+    def _run(self, subject: int, key: str, data) -> Tuple[TrainResult, float, float]:
+        """Fit the ``key`` preset's model on ``data`` = (tr_x, tr_y, te_x,
+        te_y) and archive its train logits -> (result, fit seconds, archive
+        seconds)."""
         trainer = self._trainer(key, self.presets[key])
         t0 = time.perf_counter()
         result = trainer.fit(data, seed=self.seed + subject)
@@ -206,6 +232,35 @@ class ModalityPipelines:
         if self.logits_dir is not None:
             self._save_logits(subject, key, "train", trainer.predict(data[0]))
         archive_s = time.perf_counter() - t0
+        return result, fit_s, archive_s
+
+    def run_eeg(self, subject: int, preset_key: str = "eeg") -> TaskResult:
+        """The EEG fit of one subject: EEGNet (``eeg``, the default) or the
+        conformer (``eeg_conformer``)."""
+        t0 = time.perf_counter()
+        data = self._load_split_eeg(subject, preset_key)
+        load_s = time.perf_counter() - t0
+        result, fit_s, archive_s = self._run(subject, preset_key, data)
+        return self._finish(subject, preset_key, result, data[3],
+                            fit_seconds=fit_s, n_train=len(data[0]),
+                            load_seconds=load_s, archive_seconds=archive_s)
+
+    def _load_split_audio(self, subject: int):
+        """(tr_x, tr_y, te_x, te_y): features as float32 tensors on the
+        device (one host-to-device copy, shared by fit and the archive
+        predict), labels as arrays."""
+        split = self.presets["audio"].split
+        x, y = self.load_audio(subject)
+        tr_x, tr_y, te_x, te_y = eav_split(x, y, h_idx=split.h_idx, num_classes=split.num_classes)
+        return self._to_device(tr_x), tr_y, self._to_device(te_x), te_y
+
+    def run_audio(self, subject: int) -> TaskResult:
+        """The AST fine-tune of one subject (the ``audio`` preset)."""
+        key = "audio"
+        t0 = time.perf_counter()
+        data = self._load_split_audio(subject)
+        load_s = time.perf_counter() - t0
+        result, fit_s, archive_s = self._run(subject, key, data)
         return self._finish(subject, key, result, data[3],
                             fit_seconds=fit_s, n_train=len(data[0]),
                             load_seconds=load_s, archive_seconds=archive_s)

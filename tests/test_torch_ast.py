@@ -13,6 +13,7 @@ from eav_tpu.models.ast import ast_tiny as jax_ast_tiny
 from eav_tpu_torch.core.optim import HEAD_REGEX, trainable_mask
 from eav_tpu_torch.models.ast import AST, ast_tiny
 from eav_tpu_torch.models.bridge import ast_params_from_jax
+from eav_tpu_torch.models.dropout import Dropout, set_generator
 
 
 def _pair(rng, jax_kw=None, torch_kw=None):
@@ -110,6 +111,40 @@ def test_remat_keeps_gradients(rng, remat):
         grads.append({n: p.grad for n, p in m.named_parameters()})
     for n in grads[0]:
         torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("remat", ["attn", "full"])
+def test_remat_replays_the_dropout_generator(rng, remat):
+    """Dropout masks from an explicit generator: the recompute in the
+    backward draws the forward's masks, so every gradient and the
+    generator's final state equal those of the run that keeps its
+    activations."""
+    x = torch.from_numpy(rng.normal(size=(2, 128, 128)).astype(np.float32))
+    grads, states = [], []
+    for mode in ("none", remat):
+        m = ast_tiny(dropout=0.3, remat=mode).train()
+        assert not any(isinstance(s, torch.nn.Dropout) for s in m.modules())
+        assert sum(isinstance(s, Dropout) for s in m.modules()) == 3  # pos_drop + one a layer
+        gen = torch.Generator().manual_seed(7)
+        set_generator(m, gen)
+        m(x).square().sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        states.append(gen.get_state())
+    assert torch.equal(states[0], states[1])
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6, atol=1e-6)
+
+
+def test_dropout_masks_follow_the_generator(rng):
+    x = torch.from_numpy(rng.normal(size=(2, 128, 128)).astype(np.float32))
+    m = ast_tiny(dropout=0.3).train()
+    out = []
+    for seed in (5, 5, 6):
+        set_generator(m, torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            out.append(m(x))
+    assert torch.equal(out[0], out[1])
+    assert not torch.equal(out[0], out[2])
 
 
 def test_same_generator_same_weights():

@@ -1,6 +1,6 @@
-"""The port's audio and vision tasks end to end on the CPU, their metrics
-rows against the JAX package's, the port's independence from JAX, and its
-device rule."""
+"""The port's EEG, audio and vision tasks end to end on the CPU, their
+metrics rows against the JAX package's, the port's independence from JAX, and
+its device rule."""
 
 import os
 import subprocess
@@ -207,11 +207,12 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX, REPO], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 29  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 34  # every module was imported
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):
     from eav_tpu_torch.ingest.audio import DataLoadAudio, ast_frontend
+    from eav_tpu_torch.ingest.eeg import DataLoadEEG
     from eav_tpu_torch.ingest.video import DataLoadVision
     from eav_tpu_torch.ingest.vision import vit_pixel_values
     from eav_tpu_torch.models.ast import ast_tiny
@@ -232,3 +233,84 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatc
         vit_pixel_values(np.zeros((1, 8, 8, 3), np.uint8))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         ModalityPipelines(str(tmp_path), presets={"vision": _vit_preset()}).run_vision(1)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        DataLoadEEG(1, parent_directory=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ModalityPipelines(str(tmp_path), presets={"eeg": _eeg_preset("eegnet")}).run_eeg(1)
+
+
+def _eeg_preset(model):
+    """The tiny EEGNet or a 2-layer conformer on 6 electrodes x 200 samples
+    (8 s trials in 2 s chunks), two epochs: the first in train mode, the
+    second in the sticky eval mode for EEGNet."""
+    from eav_tpu_torch.core.config import EEGPreprocConfig
+
+    kw = (dict(chans=6, samples=200, kern_length=16, f1=4, d=2, f2=8) if model == "eegnet"
+          else dict(chans=6, samples=200, num_layers=2))
+    return PresetConfig(
+        name=model, description="", split=SplitConfig(h_idx=6),
+        eeg=EEGPreprocConfig(channels=6, trial_seconds=8.0, chunk_seconds=2.0),
+        finetune=FinetuneConfig(
+            model=model, batch_size=8, optimizer="adam", weight_decay=0.0,
+            phases=(PhaseConfig(2, 1e-3, False),), compat_softmax=True,
+            compat_sticky_eval=model == "eegnet", model_kwargs=kw),
+    )
+
+
+def _eeg_subject(root, rng, trials=10):
+    """A .mat subject, the EAV layout: (t, ch, tri) signal at 500 Hz and a
+    (10, tri) one-hot whose listening rows 1, 3, 5, 7, 9 come in turn."""
+    import scipy.io
+
+    sdir = root / "subject01" / "EEG"
+    sdir.mkdir(parents=True)
+    scipy.io.savemat(str(sdir / "subject01_eeg.mat"), {"seg": rng.normal(size=(4000, 6, trials))})
+    label = np.zeros((10, trials))
+    label[(2 * np.arange(trials) + 1) % 10, np.arange(trials)] = 1
+    scipy.io.savemat(str(sdir / "subject01_eeg_label.mat"), {"label": label})
+
+
+@pytest.mark.parametrize("key,model", [("eeg", "eegnet"), ("eeg_conformer", "conformer_eeg")])
+def test_run_eeg_end_to_end(tmp_path, rng, key, model):
+    """40 chunks of 8 per class: 30 train, 10 test; the metrics row has the
+    JAX package's keys and the cache file its name."""
+    from eav_tpu.core.config import EEGPreprocConfig as JaxEEGPreprocConfig
+    from eav_tpu.train.pipeline import _cfg_hash as jax_cfg_hash
+
+    _eeg_subject(tmp_path / "EAV", rng)
+    pipes = ModalityPipelines(str(tmp_path / "EAV"), cache_dir=str(tmp_path / "cache"),
+                              logits_dir=str(tmp_path / "logits"),
+                              presets={key: _eeg_preset(model)}, device="cpu")
+    res = pipes.run_eeg(1, key)
+    m = res.metrics
+    assert set(m) == {"accuracy", "weighted_f1", "confusion", "final_train_acc", "epochs",
+                      "fit_seconds", "samples_per_sec", "load_seconds", "archive_seconds"}
+    assert m["epochs"] == 2 and np.asarray(m["confusion"]).sum() == 10
+    assert np.isfinite(res.artifacts["history"]["loss"]).all()
+    assert sorted(os.listdir(tmp_path / "logits")) == [f"s01_{key}_test.npy", f"s01_{key}_train.npy"]
+    assert np.load(tmp_path / "logits" / f"s01_{key}_train.npy").shape == (30, 5)
+    jax_key = jax_cfg_hash(JaxEEGPreprocConfig(channels=6, trial_seconds=8.0, chunk_seconds=2.0))
+    assert os.listdir(tmp_path / "cache") == [f"s01_eeg_{jax_key}.npz"]
+    assert pipes.run_eeg(1, key).metrics["accuracy"] == m["accuracy"]  # from the cache
+
+
+def test_default_presets_and_models():
+    """The EEG presets map to the JAX package's and build full-size models;
+    the EEGNet preset takes the direct temporal convolution."""
+    from eav_tpu.train.pipeline import default_presets as jax_default_presets
+    from eav_tpu_torch.models.conformer_eeg import ConformerEEG
+    from eav_tpu_torch.models.eegnet import EEGNet
+    from eav_tpu_torch.train.pipeline import build_model, default_presets
+
+    presets, jax_presets = default_presets(), jax_default_presets()
+    for key in ("eeg", "eeg_conformer"):
+        ft, jft = presets[key].finetune, jax_presets[key].finetune
+        assert presets[key].name == jax_presets[key].name
+        for field in ("model", "batch_size", "optimizer", "weight_decay", "compat_softmax",
+                      "compat_sticky_eval", "seed", "shuffle"):
+            assert getattr(ft, field) == getattr(jft, field), (key, field)
+        assert [(p.epochs, p.lr, p.freeze) for p in ft.phases] == \
+            [(p.epochs, p.lr, p.freeze) for p in jft.phases]
+    eegnet = build_model(presets["eeg"])
+    assert isinstance(eegnet, EEGNet) and eegnet.temporal_mode == "conv"
+    assert isinstance(build_model(presets["eeg_conformer"]), ConformerEEG)

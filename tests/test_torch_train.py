@@ -8,6 +8,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from eav_tpu.core.config import FinetuneConfig as JaxFinetuneConfig
@@ -210,3 +211,208 @@ def test_vit_frozen_cache_matches_full_frozen_phase(rng):
     for name in r_on.params:
         np.testing.assert_allclose(r_on.params[name].numpy(), r_off.params[name].numpy(),
                                    rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+# -- the EEG trainer features: compat flags, max-norm, dropout generator ----
+
+from eav_tpu.core.optim import maxnorm_project as jax_maxnorm_project  # noqa: E402
+from eav_tpu.models.conformer_eeg import ConformerEEG as JaxConformerEEG  # noqa: E402
+from eav_tpu.models.eegnet import EEGNet as JaxEEGNet  # noqa: E402
+from eav_tpu_torch.core.config import get_preset  # noqa: E402
+from eav_tpu_torch.core.optim import maxnorm_project  # noqa: E402
+from eav_tpu_torch.models.bridge import (  # noqa: E402
+    conformer_params_from_jax,
+    eegnet_params_from_jax,
+)
+from eav_tpu_torch.models.conformer_eeg import ConformerEEG  # noqa: E402
+from eav_tpu_torch.models.eegnet import EEGNet  # noqa: E402
+
+EEGNET_TINY = dict(chans=4, samples=64, kern_length=16, f1=4, d=2, f2=8)
+CONFORMER_TINY = dict(chans=4, samples=100, num_layers=2)
+
+
+def test_compat_softmax_cross_entropy_matches_jax(rng):
+    from eav_tpu.train.loop import cross_entropy as jax_cross_entropy
+
+    logits = rng.normal(size=(6, 5)).astype(np.float32) * 3
+    labels = rng.integers(0, 5, size=6).astype(np.int32)
+    want = jax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels), jnp.ones(6, jnp.float32),
+                             compat_softmax=True)
+    got = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels).long(),
+                        compat_softmax=True)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    plain = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels).long())
+    assert not np.isclose(float(got), float(plain))
+
+
+def test_maxnorm_project_matches_jax(rng):
+    """EEGNet's rules on weights scaled so some units exceed their norm and
+    some do not: the same projection as JAX's, and untouched leaves."""
+    x = np.zeros((1, 4, 64), np.float32)
+    mj = JaxEEGNet(**EEGNET_TINY)
+    variables = jax.tree.map(np.asarray, mj.init(jax.random.PRNGKey(0), x, train=False))
+    params = jax.tree.map(lambda p: p * rng.uniform(0.2, 3.0, size=p.shape).astype(np.float32),
+                          variables["params"])
+    want = eegnet_params_from_jax(jax.tree.map(np.asarray, jax_maxnorm_project(
+        jax.tree.map(jnp.asarray, params), mj.maxnorm_rules)), variables["batch_stats"])
+    model = EEGNet(**EEGNET_TINY)
+    model.load_state_dict(eegnet_params_from_jax(params, variables["batch_stats"]))
+    maxnorm_project(model, model.maxnorm_rules)
+    for name, value in model.state_dict().items():
+        np.testing.assert_allclose(value.numpy(), want[name].numpy(), rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+    norms = model.conv_depthwise.weight.detach().square().sum((1, 2, 3)).sqrt()
+    assert bool((norms <= 1.0 + 1e-5).all())
+
+
+def _eeg_data(rng, chans, samples, n_train=10, n_test=5):
+    return (
+        rng.normal(size=(n_train, chans, samples)).astype(np.float32),
+        rng.integers(0, 5, size=n_train).astype(np.int32),
+        rng.normal(size=(n_test, chans, samples)).astype(np.float32),
+        rng.integers(0, 5, size=n_test).astype(np.int32),
+    )
+
+
+def _eeg_cfgs(model, lr, sticky):
+    kw = dict(model=model, batch_size=4, optimizer="adam", weight_decay=0.0, shuffle=False,
+              compat_softmax=True, compat_sticky_eval=sticky)
+    return (JaxFinetuneConfig(phases=(JaxPhaseConfig(3, lr, False),), **kw),
+            FinetuneConfig(phases=(PhaseConfig(3, lr, False),), **kw))
+
+
+@pytest.mark.parametrize("sticky", [True, False])
+def test_eegnet_fit_matches_jit_trainer(rng, sticky):
+    """Tiny EEGNet, dropout 0, in-order batches with a partial last one, the
+    double softmax, max-norm after every step; with the sticky eval mode
+    (epochs 2-3 train on frozen running stats) and without. Per-epoch
+    history, test logits and the final weights and stats agree."""
+    data = _eeg_data(rng, 4, 64)
+    jcfg, cfg = _eeg_cfgs("eegnet", 1e-2, sticky)
+    mj = JaxEEGNet(**EEGNET_TINY, dropout_rate=0.0)
+    variables = jax.tree.map(np.asarray, mj.init(jax.random.PRNGKey(1), data[0][:1], train=False))
+    want = JitTrainer(mj, jcfg, maxnorm_rules=mj.maxnorm_rules).fit(
+        data, init_params=jax.tree.map(jnp.asarray, variables["params"]))
+    trainer = Trainer(EEGNet(**EEGNET_TINY, dropout_rate=0.0), cfg, device="cpu")
+    assert not trainer._frozen_cache_ok()
+    got = trainer.fit(data, init_params=eegnet_params_from_jax(variables["params"],
+                                                                variables["batch_stats"]))
+    for k in ("loss", "train_acc", "test_acc"):
+        assert got.history[k].shape == (3,)
+        np.testing.assert_allclose(got.history[k], want.history[k], rtol=1e-4, atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(got.outputs_test, want.outputs_test, rtol=1e-4, atol=1e-4)
+    final = eegnet_params_from_jax(jax.tree.map(np.asarray, want.params),
+                                   jax.tree.map(np.asarray, want.batch_stats))
+    for name, value in final.items():
+        if not name.endswith("num_batches_tracked"):  # Flax keeps no count
+            np.testing.assert_allclose(got.params[name].numpy(), value.numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=name)
+
+
+def _rounding_level_leaves(mj, variables, x, y) -> set:
+    """The parameters whose reference gradient on the batch ``(x, y)``, in
+    train mode, is at float32 rounding level (below 1e-6 of the largest
+    gradient entry), in the port's names."""
+    from eav_tpu.train.loop import cross_entropy as jax_cross_entropy
+
+    def loss(p):
+        logits, _ = mj.apply({"params": p, "batch_stats": variables["batch_stats"]},
+                             jnp.asarray(x), train=True, mutable=["batch_stats"],
+                             rngs={"dropout": jax.random.PRNGKey(0)})
+        return jax_cross_entropy(logits, jnp.asarray(y), jnp.ones(len(y), jnp.float32),
+                                 compat_softmax=True)
+
+    grads = jax.grad(loss)(jax.tree.map(jnp.asarray, variables["params"]))
+    named = conformer_params_from_jax(jax.tree.map(np.asarray, grads), variables["batch_stats"])
+    names = {n for n, _ in ConformerEEG(**CONFORMER_TINY).named_parameters()}
+    top = max(float(named[n].abs().max()) for n in names)
+    return {n for n in names if float(named[n].abs().max()) < 1e-6 * top}
+
+
+def test_conformer_fit_matches_jit_trainer(rng):
+    """Tiny conformer at the preset's lr 1e-3, with the 0.5 head max-norm
+    binding from the first step (the head's initial row norms are about 1).
+
+    The last layer's norm2 bias feeds a train-mode BatchNorm, which removes
+    any per-channel shift: its gradient is exactly zero, the reference's
+    reads at rounding level (6e-8 of the largest; the next leaf's 1e-2), so
+    Adam turns roundoff into steps of about lr whose sign the roundoff sets
+    (as for AST's key bias above), and the BatchNorm's running mean follows
+    that walk. Those two are left out of the leaf-by-leaf check and the test
+    logits, which read both, get 3e-4 (they drift by 1.3e-4 in 9 steps); with
+    the reference's values of the two loaded, the port's logits agree to
+    1e-4. The history is train mode, where the shift cancels: 1e-4."""
+    data = _eeg_data(rng, 4, 100)
+    jcfg, cfg = _eeg_cfgs("conformer_eeg", 1e-3, False)
+    assert cfg.phases[0].lr == get_preset("conformer_eeg").finetune.phases[0].lr
+    mj = JaxConformerEEG(**CONFORMER_TINY, dropout=0.0)
+    variables = jax.tree.map(np.asarray, mj.init(
+        {"params": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)}, data[0][:1],
+        train=False))
+    init = conformer_params_from_jax(variables["params"], variables["batch_stats"])
+    assert float(init["head.weight"].norm(dim=1).min()) > 0.5
+    walk = _rounding_level_leaves(mj, variables, data[0][:4], data[1][:4])
+    last = f"layers.{CONFORMER_TINY['num_layers'] - 1}"
+    assert walk == {f"{last}.norm2.bias"}  # the bias that feeds the BatchNorm
+    walk |= {"bn.running_mean"}
+    want = JitTrainer(mj, jcfg, maxnorm_rules=mj.maxnorm_rules).fit(
+        data, init_params=jax.tree.map(jnp.asarray, variables["params"]))
+    trainer = Trainer(ConformerEEG(**CONFORMER_TINY, dropout=0.0), cfg, device="cpu")
+    got = trainer.fit(data, init_params=init)
+    for k in ("loss", "train_acc", "test_acc"):
+        np.testing.assert_allclose(got.history[k], want.history[k], rtol=1e-4, atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(got.outputs_test, want.outputs_test, rtol=3e-4, atol=3e-4)
+    assert float(got.params["head.weight"].norm(dim=1).max()) <= 0.5 + 1e-6
+    final = conformer_params_from_jax(jax.tree.map(np.asarray, want.params),
+                                      jax.tree.map(np.asarray, want.batch_stats))
+    for name, value in final.items():
+        if name.endswith("num_batches_tracked") or name in walk:
+            continue
+        np.testing.assert_allclose(got.params[name].numpy(), value.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    patched = dict(got.params, **{n: final[n] for n in walk})
+    np.testing.assert_allclose(trainer.predict(data[2], params=patched), want.outputs_test,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_dropout_fit_repeats_under_one_seed(rng):
+    """Dropout 0.5 with shuffled batches: one seed, one fit; another seed,
+    another fit. The BN buffers travel in ``params``."""
+    data = _eeg_data(rng, 4, 64, 12, 4)
+    cfg = FinetuneConfig(model="eegnet", batch_size=4, optimizer="adam", weight_decay=0.0,
+                         phases=(PhaseConfig(2, 1e-2, False),), compat_softmax=True,
+                         compat_sticky_eval=True)
+    trainer = Trainer(EEGNet(**EEGNET_TINY, dropout_rate=0.5), cfg, device="cpu")
+    a, b, c = trainer.fit(data, seed=4), trainer.fit(data, seed=4), trainer.fit(data, seed=5)
+    np.testing.assert_array_equal(a.outputs_test, b.outputs_test)
+    np.testing.assert_array_equal(a.history["loss"], b.history["loss"])
+    assert not np.array_equal(a.outputs_test, c.outputs_test)
+    assert "bn_temporal.running_var" in a.params
+
+
+def test_sticky_eval_stops_the_running_stats_after_the_first_epoch(rng):
+    data = _eeg_data(rng, 4, 64)
+    stats = {}
+    for epochs in (1, 3):
+        cfg = FinetuneConfig(model="eegnet", batch_size=4, optimizer="adam", weight_decay=0.0,
+                             phases=(PhaseConfig(epochs, 1e-2, False),), compat_sticky_eval=True)
+        stats[epochs] = Trainer(EEGNet(**EEGNET_TINY), cfg, device="cpu").fit(data, seed=1).params
+    for name in ("bn_temporal.running_mean", "bn_separable.running_var"):
+        assert torch.equal(stats[1][name], stats[3][name]), name
+    assert not torch.equal(stats[1]["head.weight"], stats[3]["head.weight"])
+
+
+def test_adam_decays_nothing_and_unknown_optimizers_raise():
+    cfg = FinetuneConfig(model="eegnet", batch_size=4, optimizer="adam", weight_decay=0.5,
+                         phases=(PhaseConfig(1, 1e-3, False),))
+    opt = make_optimizer(EEGNet(**EEGNET_TINY), cfg)
+    assert opt.param_groups[0]["weight_decay"] == 0.0
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(EEGNet(**EEGNET_TINY), dataclasses.replace(cfg, optimizer="sgd"))
+
+
+def test_cache_gate_refuses_maxnorm_rules():
+    cfg = FinetuneConfig(phases=(PhaseConfig(1, 5e-3, True),), **_CFG)
+    model = ast_tiny()
+    model.maxnorm_rules = ((r"^classifier\.weight$", 1.0, (1,)),)
+    assert not Trainer(model, cfg, device="cpu")._frozen_cache_ok()
