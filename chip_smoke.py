@@ -39,11 +39,12 @@ Phases, each of which fails the run on error:
    resized in the model), median time of 10 with the preset's math attention
    and its profile, then the same step through the flash kernels;
 10. EEG path: a synthetic subject at the real shapes written with
-   ``scipy.io.savemat`` (``seg`` (10000, 30, 200) at 500 Hz, a (10, 200)
-   one-hot with the classes in turn); ``preprocess_eeg`` on the card (the
-   resample and the SOS bandpass) against a float64 scipy oracle of the
-   reference's chain (within 1e-5 of the scale), and timed alone; ``ModalityPipelines.run_eeg`` with the
-   full-width ``eegnet_subject`` (EEGNet, 30 x 500, kern 300, batch 32) and
+   ``scipy.io.savemat`` on a host thread during the build, waited for
+   before phase 3 (``seg`` (10000, 30, 200) at 500 Hz, a (10, 200) one-hot
+   with the classes in turn); ``preprocess_eeg`` on the card (the resample
+   and the SOS bandpass) against a float64 scipy oracle of the reference's
+   chain (within 1e-5 of the scale), and timed alone;
+   ``ModalityPipelines.run_eeg`` with the full-width ``eegnet_subject`` (EEGNet, 30 x 500, kern 300, batch 32) and
    ``conformer_eeg`` (12 layers, embed 40, T 488) presets, 2 epochs each on
    the full 280 / 120 split; finite losses, the metrics keys, a confusion
    matrix of 120, the archives' shapes, and the head's max-norm after the
@@ -53,22 +54,58 @@ Phases, each of which fails the run on error:
    FFT, direct), and the conformer; a profile of the conformer's step and of
    EEGNet's in each temporal mode, for their device ms/step. The EEG path has
    no hand-written kernel (the conformer's attention is math at D 40, as in
-   the JAX package).
+   the JAX package);
+12. determinism: ``run_eeg`` with the full-width conformer twice in the
+   trainer's deterministic mode (``torch.use_deterministic_algorithms``)
+   must give identical losses and test logits; the EEGNet and conformer
+   steps timed with the mode and without it, in turns;
+13. stacked EEG: subjects 2..8 served by links to subject 1's ``.mat`` files
+   (the same data, their own seeds), ``run_stacked`` for ``eeg`` and
+   ``eeg_conformer`` at S 8 and 4 in the deterministic mode: the row keys (the
+   serial keys and ``group_size``), both archives of every subject, every
+   subject's max-norm bounds; stacked == serial for the first and last subject:
+   EEGNet's test logits against serial ``run_eeg`` fits to rtol = atol =
+   2e-4, the conformer's loss and gradients of one full-width step to 2e-4
+   of the largest entry, and its losses and test logits after a full-width
+   fit of 2 steps (dropout on, the sticky eval mode, max-norm) to 0.1 (its
+   fit is chaotic, PERF.md); subject 1 against subject 2's serial fit or
+   step, subject 1 fit with subject 2's dropout masks and a fit without
+   max-norm must fail those checks;
+14. stacked steps: one stacked train step on random tensors of the real
+   shape, EEGNet at S 1, 8 and 42 and the conformer at S 8 and 42, in ms a
+   subject-step beside the serial step of phase 11, and peak memory;
+15. stacked AST-base: ``run_stacked([1, 2], "audio")`` (subject 2 a link to
+   subject 1's wavs) with the full-width ``ast_finetune`` preset, one frozen
+   and one unfrozen epoch: ``vmap`` with math attention and remat 'attn';
+   the flash kernels are not launched; the stacked unfrozen step timed at
+   S 2 with its peak memory;
+16. fusion: ``run_fusion(s, mods=("eeg", "eeg_conformer"))`` over the
+   archives of phase 13 for each of the conformer group's 4 subjects at the
+   preset's 100 epochs: the row keys and finite fused logits.
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
-float32 means float32 throughout the run. The last lines are the ``kernels``
+float32 means float32 throughout the run. ``CUBLAS_WORKSPACE_CONFIG`` is set
+before torch is imported (phases 12-13 need it), so every phase, the timed
+AST and ViT steps included, runs with it set. The last lines are the ``kernels``
 JSON, the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``. Exits
 non-zero without that line when there is no GPU or a phase fails.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+# cuBLAS is deterministic only with this workspace setting in the environment
+# before the process's first cuBLAS call. The AST phases call cuBLAS long
+# before the deterministic mode of phases 12-13 is turned on, so it is set
+# here, before torch is imported.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -87,8 +124,16 @@ B, H, D = 8, 12, 64
 T_AST = 1214
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phase: str) -> None:
+    """A phase's end, with the seconds since the script started."""
+    log(f"[{time.perf_counter() - T_START:.1f} s] {phase} done")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -203,7 +248,7 @@ def check_kernels(t_pad: int, t: int, dtype_name: str, seed: int) -> dict:
     errs["flash_dq"] = max_err(dq, dq_p, *tol)
     # the autograd function: K1 forward, rowsum(dO*O), K2 and K3 backward
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    out = A.FlashAttention.apply(*leaves, t)
+    out = A.flash_attention_bh(*leaves, t)
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
     for g, want in zip(grads, (dq_p, dk_p, dv_p)):
@@ -269,7 +314,7 @@ def time_kernels(seed: int) -> dict:
     flat = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
 
     def flash_fwd_bwd():
-        torch.autograd.grad(A.FlashAttention.apply(*flat, t), flat, do)
+        torch.autograd.grad(A.flash_attention_bh(*flat, t), flat, do)
 
     fb_sdpa, fb_flash = cuda_ms(sdpa_fwd_bwd), cuda_ms(flash_fwd_bwd)
     # aten's flash-attention backward: one call for dQ, dK and dV together
@@ -458,11 +503,31 @@ def run_main_path() -> dict:
 # -----------------------------------------------------------------------------
 
 
+def step_inputs(preset, lead=()):
+    """Random (x, y) of a preset's train batch as its path feeds it, with
+    ``lead`` axes in front (a subject stack): AST (8, 1024, 128) fbanks, ViT
+    (128, 56, 56, 3) uint8 frames, EEGNet and the conformer (32, 30, 500)
+    trials."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bs = (*lead, preset.finetune.batch_size)
+    if preset.audio is not None:
+        x = torch.randn(*bs, 1024, 128, generator=gen, device="cuda")
+    elif preset.vision is not None:
+        side = preset.vision.face_image_size
+        x = torch.randint(0, 256, (*bs, side, side, 3), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    else:
+        x = torch.randn(*bs, preset.eeg.channels, preset.eeg.samples_per_chunk, generator=gen,
+                        device="cuda")
+    return x, torch.randint(0, 5, bs, generator=gen, device="cuda")
+
+
 def train_step_setup(preset_name: str = "ast_finetune", **model_kw):
     """(trainer, optimizer, x, y) for the full-width unfrozen train-mode step
-    of a preset: AST on (8, 1024, 128) fbanks, ViT on (128, 56, 56, 3) uint8
-    frames, EEGNet and the conformer on (32, 30, 500) trials, as the paths
-    feed them; ``model_kw`` overrides the preset's model kwargs."""
+    of a preset (``step_inputs``); ``model_kw`` overrides the preset's model
+    kwargs."""
     import dataclasses
 
     import torch
@@ -479,18 +544,7 @@ def train_step_setup(preset_name: str = "ast_finetune", **model_kw):
     trainer = Trainer(build_model(preset), preset.finetune, device="cuda")
     trainer.model.train()
     opt = make_optimizer(trainer.model, preset.finetune)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    bs = preset.finetune.batch_size
-    if preset.audio is not None:
-        x = torch.randn(bs, 1024, 128, generator=gen, device="cuda")
-    elif preset.vision is not None:
-        side = preset.vision.face_image_size
-        x = torch.randint(0, 256, (bs, side, side, 3), generator=gen, device="cuda",
-                          dtype=torch.uint8)
-    else:
-        x = torch.randn(bs, preset.eeg.channels, preset.eeg.samples_per_chunk, generator=gen,
-                        device="cuda")
-    y = torch.randint(0, 5, (bs,), generator=gen, device="cuda")
+    x, y = step_inputs(preset)
     for _ in range(3):  # warm-up: cuBLAS handles, allocator, optimizer state
         trainer.train_step(opt, x, y)
     torch.cuda.synchronize()
@@ -499,18 +553,22 @@ def train_step_setup(preset_name: str = "ast_finetune", **model_kw):
 
 def time_train_step(card: str, preset_name: str = "ast_finetune",
                     what: str = "AST-base, unfrozen, bs 8, bf16, flash kernels",
-                    **model_kw) -> float:
-    """Median ms of 10 train steps, printed with samples/s and peak memory."""
+                    deterministic: bool = False, **model_kw) -> float:
+    """Median ms of 10 train steps, printed with samples/s and peak memory;
+    with ``deterministic``, under torch's deterministic algorithms."""
     import torch
 
+    from eav_tpu_torch.core.device import deterministic_algorithms
+
     torch.cuda.reset_peak_memory_stats()
-    trainer, opt, x, y = train_step_setup(preset_name, **model_kw)
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        trainer.train_step(opt, x, y)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    with deterministic_algorithms(deterministic):
+        trainer, opt, x, y = train_step_setup(preset_name, **model_kw)
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            trainer.train_step(opt, x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     ms = statistics.median(times) * 1e3
     bs = x.shape[0]
     log(f"train step ({what}): median {ms:.2f} ms of 10, {bs / ms * 1e3:.2f} samples/s; "
@@ -731,73 +789,520 @@ def check_eeg_preprocess(root: str, card: str) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
 
 
-def run_eeg_path(card: str) -> None:
+EEG_BOUNDS = {"eeg": {"head.weight": 1.0, "conv_depthwise.weight": 1.0},  # max-norms
+              "eeg_conformer": {"head.weight": 0.5}}
+
+
+def eeg_presets(epochs: int = 2) -> dict:
+    """The full-width ``eegnet_subject`` and ``conformer_eeg`` presets cut
+    to ``epochs`` epochs, and ``fusion_sweep``, under their modality keys."""
+    import dataclasses
+
+    from eav_tpu_torch.core.config import get_preset
+
+    presets = {"fusion": get_preset("fusion_sweep")}
+    for key, name in (("eeg", "eegnet_subject"), ("eeg_conformer", "conformer_eeg")):
+        base = get_preset(name)
+        phase = dataclasses.replace(base.finetune.phases[0], epochs=epochs)
+        presets[key] = base.replace(finetune=dataclasses.replace(base.finetune, phases=(phase,)))
+    return presets
+
+
+def eeg_pipelines(root: str, logits: str, deterministic: bool = False):
+    """Pipelines over the synthetic EEG subjects under ``root`` with the
+    trial cache shared by every phase."""
+    from eav_tpu_torch.train.pipeline import ModalityPipelines
+
+    return ModalityPipelines(os.path.join(root, "EAV"), cache_dir=os.path.join(root, "cache"),
+                             logits_dir=os.path.join(root, logits), presets=eeg_presets(),
+                             device="cuda", deterministic=deterministic)
+
+
+def max_row_norms(params: dict, key: str) -> dict:
+    """Each max-normed weight's largest row norm (a subject's state_dict)."""
+    return {n: float(params[n].flatten(1).norm(dim=1).max()) for n in EEG_BOUNDS[key]}
+
+
+def check_max_norms(norms: dict, key: str) -> None:
+    for n, bound in EEG_BOUNDS[key].items():
+        if norms[n] > bound * (1 + 1e-5):
+            raise AssertionError(f"{n} row norm {norms[n]} above its max-norm {bound}")
+
+
+def timed_write_eeg_subject(root: str) -> float:
+    """``write_eeg_subject`` under ``root``/EAV -> its seconds."""
+    t0 = time.perf_counter()
+    write_eeg_subject(os.path.join(root, "EAV"))
+    return time.perf_counter() - t0
+
+
+def run_eeg_path(card: str, root: str) -> None:
     """``run_eeg`` with the full-width EEGNet and conformer presets, 2 epochs
-    each, on one synthetic subject; the conformer reads the trials EEGNet's
-    run cached."""
+    each, on the synthetic subject under ``root``; the conformer reads the
+    trials EEGNet's run cached."""
+    import numpy as np
+    import torch
+
+    presets = eeg_presets()
+    check_eeg_preprocess(os.path.join(root, "EAV"), card)
+    logits = os.path.join(root, "logits")
+    pipes = eeg_pipelines(root, "logits")
+    for key in ("eeg", "eeg_conformer"):
+        t0 = time.perf_counter()
+        res = pipes.run_eeg(1, key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        test_arch = np.load(os.path.join(logits, f"s01_{key}_test.npy"))
+        train_arch = np.load(os.path.join(logits, f"s01_{key}_train.npy"))
+        hist, m, params = res.artifacts["history"], res.metrics, res.artifacts["params"]
+        norms = max_row_norms(params, key)
+        log(f"run_eeg ({presets[key].name}, full width, float32, 2 epochs, 280 train / 120 "
+            f"test): {wall:.1f} s; losses {hist['loss'].tolist()}, train acc "
+            f"{hist['train_acc'].tolist()}, test acc {hist['test_acc'].tolist()}, accuracy "
+            f"{m['accuracy']}, load {m['load_seconds']} s, fit {m['fit_seconds']} s, "
+            f"{m['samples_per_sec']} samples/s, archive {m['archive_seconds']} s; archives "
+            f"test {test_arch.shape}, train {train_arch.shape}; max row norms {norms} "
+            f"(max-norm {EEG_BOUNDS[key]}) on {card}")
+        if not (np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2):
+            raise AssertionError(f"bad loss history {hist['loss']}")
+        if set(m) != METRICS_KEYS:
+            raise AssertionError(f"metrics keys {sorted(m)} != {sorted(METRICS_KEYS)}")
+        if sum(map(sum, m["confusion"])) != 120:
+            raise AssertionError(f"the confusion matrix does not count 120: {m['confusion']}")
+        if test_arch.shape != (120, 5) or train_arch.shape != (280, 5):
+            raise AssertionError(f"archive shapes {test_arch.shape}, {train_arch.shape}")
+        if not np.isfinite(test_arch).all():
+            raise AssertionError("non-finite test logits")
+        check_max_norms(norms, key)
+
+
+def eegnet_temporal_modes(card: str) -> float:
+    """EEGNet's train step with the direct (``conv``, the preset's) and the
+    FFT temporal convolution in turns (conv, fft, fft, conv), and a profile
+    of each for its device ms/step -> the mean of the conv medians."""
+    from eav_tpu_torch.core.config import get_preset
+
+    what = "EEGNet (eegnet_subject), bs 32, 30 x 500, kern 300, float32, train mode"
+    step_ms = {"conv": [], "fft": []}
+    for mode in ("conv", "fft", "fft", "conv"):  # in turns, on one card
+        step_ms[mode].append(time_train_step(card, "eegnet_subject",
+                                             f"{what}, temporal_mode {mode}", temporal_mode=mode))
+    log(f"EEGNet step, fft / conv in turns: "
+        f"{step_ms['fft'][0] / step_ms['conv'][0]:.3f}, {step_ms['fft'][1] / step_ms['conv'][1]:.3f} "
+        f"(the preset takes {get_preset('eegnet_subject').finetune.model_kwargs['temporal_mode']!r})")
+    device_ms = {mode: profile_train_step(card, "eegnet_subject", top=12, temporal_mode=mode)
+                 for mode in ("conv", "fft")}
+    log(f"EEGNet step, device ms/step under the profiler: conv {device_ms['conv']:.3f}, fft "
+        f"{device_ms['fft']:.3f} (fft / conv {device_ms['fft'] / device_ms['conv']:.3f})")
+    return statistics.mean(step_ms["conv"])
+
+
+# -----------------------------------------------------------------------------
+# 12. determinism: a repeated fit, and what the mode costs a step
+# -----------------------------------------------------------------------------
+
+
+def check_determinism(card: str, root: str) -> dict:
+    """``run_eeg`` with the full-width conformer (dropout 0.5, shuffled
+    batches) twice in the deterministic mode: the same losses and test
+    logits, bit for bit. Then the EEGNet and conformer steps without the mode
+    and with it, in turns (off, on, on, off) -> {preset: {False: [ms], True:
+    [ms]}}."""
+    import numpy as np
+
+    runs = []
+    for i in range(2):
+        pipes = eeg_pipelines(root, f"det{i}", deterministic=True)
+        res = pipes.run_eeg(1, "eeg_conformer")
+        runs.append((res.artifacts["history"],
+                     np.load(os.path.join(root, f"det{i}", "s01_eeg_conformer_test.npy"))))
+    (h0, l0), (h1, l1) = runs
+    same = all(np.array_equal(h0[k], h1[k]) for k in h0) and np.array_equal(l0, l1)
+    log(f"determinism: run_eeg (conformer_eeg, full width, 2 epochs) twice in the deterministic "
+        f"mode: losses {h0['loss'].tolist()} / {h1['loss'].tolist()}, test logits "
+        f"{'identical' if same else 'DIFFER'} (max abs diff {float(np.abs(l0 - l1).max()):.3g})")
+    if not same:
+        raise AssertionError("a fit in the deterministic mode did not repeat")
+    cost = {}
+    for name, what in (("eegnet_subject", "EEGNet (eegnet_subject), bs 32, float32, conv"),
+                       ("conformer_eeg", "EEG conformer (conformer_eeg), bs 32, float32")):
+        cost[name] = {False: [], True: []}
+        for on in (False, True, True, False):
+            cost[name][on].append(time_train_step(card, name, f"{what}, deterministic {on}",
+                                                  deterministic=on))
+        on_ms, off_ms = cost[name][True], cost[name][False]
+        log(f"deterministic mode, {name} step, on / off in turns: {on_ms[0] / off_ms[0]:.3f}, "
+            f"{on_ms[1] / off_ms[1]:.3f} (on {on_ms} ms, off {off_ms} ms)")
+    return cost
+
+
+# -----------------------------------------------------------------------------
+# 13. stacked EEG: run_stacked against the serial fits
+# -----------------------------------------------------------------------------
+
+GROUP = 8  # subjects of the stacked EEGNet group
+CONFORMER_GROUP = 4  # of the stacked conformer group, and of the fusion phase
+STACK_TOL = (2e-4, 2e-4)  # stacked == serial, the JAX package's bound (tests/test_parallel.py)
+# the conformer's 2-step fit, stacked against serial: test logits' max abs
+# err. Adam's first update is about lr * sign(g), and a gradient entry near 0
+# whose sign roundoff flips moves its weight by 2 lr: sound fits read up to
+# 0.031 on the card, the planted faults 0.34-0.90 on the CPU (PERF.md)
+TRAJ_TOL = 0.1
+
+
+def link_eeg_subjects(root: str, subjects) -> None:
+    """Subjects served by links to subject 1's ``.mat`` files under their
+    own names: the same data, fit at their own seeds."""
+    src = os.path.join(root, "EAV", "subject01", "EEG")
+    for s in subjects:
+        name = f"subject{s:02d}"
+        edir = os.path.join(root, "EAV", name, "EEG")
+        os.makedirs(edir)
+        for suffix in ("eeg.mat", "eeg_label.mat"):
+            os.symlink(os.path.join(src, f"subject01_{suffix}"),
+                       os.path.join(edir, f"{name}_{suffix}"))
+
+
+def stacked_against_serial(root: str, key: str, subjects, tag: str) -> dict:
+    """Test logits and BatchNorm running stats of ``run_stacked`` over
+    ``subjects`` against serial ``run_eeg`` fits of the first and last
+    subject, in the deterministic mode, to ``STACK_TOL``; subject 1's
+    stacked logits against subject 2's serial fit must fail the check ->
+    max abs errors of the logits by subject."""
+    import numpy as np
+    import torch
+
+    stacked = eeg_pipelines(root, f"{tag}_stacked", True)
+    serial = eeg_pipelines(root, f"{tag}_serial", True)
+    rows = stacked.run_stacked(subjects, key)
+    arch = lambda d, s: torch.as_tensor(np.load(  # noqa: E731
+        os.path.join(root, f"{tag}_{d}", f"s{s:02d}_{key}_test.npy")))
+    errs = {}
+    for s in (subjects[0], subjects[-1], subjects[1]):
+        fit = serial.run_eeg(s, key).artifacts["params"]
+        if s != subjects[1]:
+            errs[s] = max_err(arch("stacked", s), arch("serial", s), *STACK_TOL)
+            for n, v in fit.items():
+                if "running_" in n:
+                    max_err(rows[s].artifacts["params"][n], v, *STACK_TOL)
+    must_reject(arch("stacked", subjects[0]), arch("serial", subjects[1]), *STACK_TOL,
+                f"subject {subjects[0]}'s stacked logits against subject {subjects[1]}'s serial fit")
+    return errs
+
+
+def stacked_step_against_serial(preset_name: str, subjects: int) -> dict:
+    """One stacked train step of ``subjects`` subjects at full width (the
+    real batch, each subject's init and dropout masks from its own seed)
+    against each subject's serial step, in the deterministic mode: the loss
+    and every gradient, the gradients to ``STACK_TOL[0]`` of the largest
+    serial entry. Subject 1's stacked gradients against subject 2's serial
+    ones must fail -> relative errors of the first and last subject."""
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.core.device import deterministic_algorithms
+    from eav_tpu_torch.core.optim import make_optimizer
+    from eav_tpu_torch.models.dropout import set_generator
+    from eav_tpu_torch.train.loop import Trainer
+    from eav_tpu_torch.train.pipeline import build_model
+
+    preset = get_preset(preset_name)
+    seeds = list(range(1, subjects + 1))
+    with deterministic_algorithms(True):
+        sp = stacked_trainer(preset)
+        stack = sp.init_stack(seeds)
+        sp.model.train()
+        x, y = step_inputs(preset, (subjects,))
+        loss, _ = sp.train_step(stack, x, y)
+        serial = Trainer(build_model(preset), preset.finetune, device="cuda")
+
+        def serial_step(s):
+            serial.model.reset_parameters(torch.Generator().manual_seed(seeds[s]))
+            set_generator(serial.model, torch.Generator(device="cuda").manual_seed(seeds[s]))
+            serial.model.train()
+            one, _ = serial.train_step(make_optimizer(serial.model, preset.finetune), x[s], y[s])
+            return float(one), {n: p.grad for n, p in serial.model.named_parameters()}
+
+        def rel_err(s, grads):
+            scale = max(float(g.abs().max()) for g in grads.values())
+            return max(float((stack.params[n].grad[s] - g).abs().max())
+                       for n, g in grads.items()) / scale
+
+        errs = {}
+        for s in (0, subjects - 1):
+            one, grads = serial_step(s)
+            errs[s + 1] = rel_err(s, grads)
+            for n, v in serial.model.named_buffers():
+                if "running_" in n:  # BatchNorm's stats after the step
+                    max_err(stack.buffers[n][s], v, *STACK_TOL)
+            if errs[s + 1] > STACK_TOL[0] or abs(one - float(loss[s])) > STACK_TOL[0] * abs(one):
+                raise AssertionError(f"{preset_name} subject {s + 1}: stacked step loss "
+                                     f"{float(loss[s])} vs serial {one}, gradients {errs[s + 1]:.3g}")
+        if rel_err(0, serial_step(1)[1]) <= STACK_TOL[0]:
+            raise AssertionError("the check passed a planted fault: subject 1's stacked gradients "
+                                 "against subject 2's serial step")
+    return errs
+
+
+def stacked_fit_against_serial(subjects: int):
+    """The full-width conformer's fit of 2 epochs of one step (30 random
+    train trials, 120 test, shuffled, dropout 0.5, the second epoch in the
+    sticky eval mode) stacked over ``subjects`` subjects against each
+    subject's serial ``Trainer.fit``, in the deterministic mode: the loss
+    histories to ``STACK_TOL[0]`` relative, the test logits to
+    ``TRAJ_TOL``. Two planted faults must fail the logits' check: subject 1
+    fit with subject 2's dropout masks, and the stack fit without max-norm
+    Every reading is logged before any check raises."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
+    from eav_tpu_torch.train.loop import Trainer
+    from eav_tpu_torch.train.pipeline import build_model
+
+    class OtherMasks(SubjectParallelTrainer):
+        """Subject 1's dropout masks drawn from subject 2's generator."""
+
+        def init_stack(self, seeds, init_params=None):
+            stack = super().init_stack(seeds, init_params)
+            stack.dropout_gens[0] = torch.Generator(device="cuda").manual_seed(seeds[1])
+            return stack
+
+    preset = get_preset("conformer_eeg")
+    base = preset.finetune
+    cfg = dataclasses.replace(base, phases=(dataclasses.replace(base.phases[0], epochs=2),))
+    rng = np.random.default_rng(3)
+    n_tr, n_te = 30, 120
+    data = (rng.standard_normal((subjects, n_tr, 30, 500), dtype=np.float32),
+            np.stack([rng.permutation(n_tr) % 5 for _ in range(subjects)]),
+            rng.standard_normal((subjects, n_te, 30, 500), dtype=np.float32),
+            np.tile(np.arange(n_te) % 5, (subjects, 1)))
+    seeds = list(range(1, subjects + 1))
+
+    def stacked(cls=SubjectParallelTrainer, maxnorm: bool = True):
+        sp = cls(build_model(preset), cfg, device="cuda", deterministic=True)
+        if not maxnorm:
+            sp.inner.maxnorm_rules = []
+        return sp.fit_stacked(data, seeds=seeds)
+
+    fit = stacked()
+    errs, loss_errs, serial = {}, {}, []
+    for s in range(subjects):
+        one = Trainer(build_model(preset), cfg, device="cuda", deterministic=True).fit(
+            tuple(a[s] for a in data), seed=seeds[s])
+        serial.append(one.outputs_test)
+        want = one.history["loss"]
+        loss_errs[s + 1] = float(np.abs(fit.history["loss"][s] - want).max() / np.abs(want).max())
+        errs[s + 1] = float(np.abs(fit.outputs_test[s] - one.outputs_test).max())
+    faults = {what: float(np.abs(res.outputs_test[0] - serial[0]).max())
+              for what, res in (("subject 2's masks", stacked(OtherMasks)),
+                                ("no max-norm", stacked(maxnorm=False)))}
+    log(f"stacked == serial, eeg_conformer (S {subjects}, a fit of 2 epochs of one step, 30 train "
+        f"/ 120 test, dropout on, sticky eval): test logits max abs err {errs} (bound {TRAJ_TOL}), "
+        f"losses' relative err {loss_errs} (bound {STACK_TOL[0]}); subject 1 against its serial "
+        f"fit with the planted faults: {faults}, each must pass the bound")
+    if max(errs.values()) > TRAJ_TOL or max(loss_errs.values()) > STACK_TOL[0]:
+        raise AssertionError("the stacked conformer's fit left its serial fits")
+    if min(faults.values()) <= TRAJ_TOL:
+        raise AssertionError(f"the check passed a planted fault: {faults}")
+
+
+def run_stacked_eeg(card: str, root: str):
+    """``run_stacked`` for EEGNet at S ``GROUP`` and the conformer at S
+    ``CONFORMER_GROUP`` in the deterministic mode: the rows, archives and
+    max-norms of every subject, and stacked == serial: EEGNet's test logits
+    after its 2-epoch fit (``stacked_against_serial``); the conformer's one
+    step of gradients (``stacked_step_against_serial``) and its fit of 2
+    steps (``stacked_fit_against_serial``), since its fit at lr 1e-3 carries
+    a change in the last bit of a product into the test logits at about 1e3
+    times its size within 2 steps, and to 0.8 within the 18 steps of its
+    2-epoch fit (PERF.md)."""
+    import numpy as np
+    import torch
+
+    subjects = list(range(1, GROUP + 1))
+    link_eeg_subjects(root, subjects[1:])
+    stacked = eeg_pipelines(root, "stacked", deterministic=True)
+    for key, group in (("eeg", subjects), ("eeg_conformer", subjects[:CONFORMER_GROUP])):
+        t0 = time.perf_counter()
+        rows = stacked.run_stacked(group, key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        arch = lambda s, split: np.load(  # noqa: E731
+            os.path.join(root, "stacked", f"s{s:02d}_{key}_{split}.npy"))
+        norms = {s: max_row_norms(rows[s].artifacts["params"], key) for s in group}
+        for s in group:
+            if set(rows[s].metrics) != METRICS_KEYS | {"group_size"}:
+                raise AssertionError(f"stacked row keys {sorted(rows[s].metrics)}")
+            if arch(s, "test").shape != (120, 5) or arch(s, "train").shape != (280, 5):
+                raise AssertionError(f"subject {s}'s archives are not (120, 5) and (280, 5)")
+            if not np.isfinite(arch(s, "test")).all():
+                raise AssertionError(f"subject {s}'s test logits are not finite")
+            check_max_norms(norms[s], key)
+        m = rows[1].metrics
+        log(f"run_stacked ({key}, S {len(group)}, full width, 2 epochs, 280 / 120, deterministic): "
+            f"{wall:.1f} s, fit {m['fit_seconds']} s ({m['samples_per_sec']} samples/s for the "
+            f"group), load {m['load_seconds']} s; rows with group_size, archives (120, 5) and "
+            f"(280, 5) for every subject; largest row norm "
+            f"{max(max(n.values()) for n in norms.values()):.6f} (max-norm {EEG_BOUNDS[key]}); "
+            f"on {card}")
+    errs = stacked_against_serial(root, "eeg", subjects, "eeg")
+    log(f"stacked == serial, eeg (S {GROUP}, 2 epochs, 280 / 120): test logits max abs err "
+        f"{errs}, BatchNorm running stats within (atol, rtol) {STACK_TOL}; subject 1 against "
+        f"subject 2's serial fit fails")
+    errs = stacked_step_against_serial("conformer_eeg", CONFORMER_GROUP)
+    log(f"stacked == serial, eeg_conformer (S {CONFORMER_GROUP}, one train step at full width, "
+        f"dropout on): gradients' max abs err over the largest entry {errs} (bound {STACK_TOL[0]}), "
+        f"losses within {STACK_TOL[0]} relative, running stats within {STACK_TOL}; subject 1 "
+        f"against subject 2's serial step fails")
+    stacked_fit_against_serial(CONFORMER_GROUP)
+
+
+# -----------------------------------------------------------------------------
+# 14-15. stacked train steps; the stacked AST-base
+# -----------------------------------------------------------------------------
+
+
+def stacked_trainer(preset):
+    """A ``SubjectParallelTrainer`` of the preset's model as ``run_stacked``
+    builds it (math attention and remat 'attn' for a transformer)."""
+    from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
+    from eav_tpu_torch.train.pipeline import build_model
+
+    overrides = {}
+    if preset.finetune.model in ("ast", "vit"):
+        overrides = {"attn_impl": "math", "remat": "attn"}
+    return SubjectParallelTrainer(build_model(preset, **overrides), preset.finetune, device="cuda")
+
+
+def time_stacked_step(card: str, preset_name: str, subjects: int, what: str):
+    """Median ms of 5 stacked train steps of ``subjects`` subjects on random
+    inputs of the real shape (after 2 warm-up steps), its dropout masks
+    drawn as in a fit -> (ms, peak GiB)."""
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+
+    preset = get_preset(preset_name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sp = stacked_trainer(preset)
+    stack = sp.init_stack(range(subjects))
+    sp.model.train()
+    x, y = step_inputs(preset, (subjects,))
+    for _ in range(2):
+        sp.train_step(stack, x, y)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sp.train_step(stack, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"stacked train step ({what}, S {subjects}): median {ms:.2f} ms of 5, "
+        f"{ms / subjects:.3f} ms a subject-step; peak memory {peak:.2f} GiB on {card}")
+    return ms, peak
+
+
+def run_stacked_audio(card: str) -> None:
+    """``run_stacked([1, 2], "audio")`` with the full-width ``ast_finetune``
+    (1 frozen + 1 unfrozen epoch, 30 train / 10 test segments), subject 2 a
+    link to subject 1's wavs; the flash kernels stay idle (math attention)."""
     import dataclasses
     import tempfile
 
     import numpy as np
     import torch
 
-    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.core.config import PhaseConfig, get_preset
+    from eav_tpu_torch.ops import attention as A
     from eav_tpu_torch.train.pipeline import ModalityPipelines
 
-    presets = {}
-    for key, name in (("eeg", "eegnet_subject"), ("eeg_conformer", "conformer_eeg")):
-        base = get_preset(name)
-        phase = dataclasses.replace(base.finetune.phases[0], epochs=2)
-        presets[key] = base.replace(finetune=dataclasses.replace(base.finetune, phases=(phase,)))
-    bounds = {"eeg": {"head.weight": 1.0, "conv_depthwise.weight": 1.0},
-              "eeg_conformer": {"head.weight": 0.5}}
+    base = get_preset("ast_finetune")
+    preset = base.replace(
+        split=dataclasses.replace(base.split, h_idx=6),
+        finetune=dataclasses.replace(
+            base.finetune,
+            phases=(PhaseConfig(epochs=1, lr=5e-4, freeze=True),
+                    PhaseConfig(epochs=1, lr=5e-6, freeze=False)),
+        ),
+    )
     with tempfile.TemporaryDirectory() as root:
+        write_subject(root)
+        os.makedirs(os.path.join(root, "subject02"))
+        os.symlink(os.path.join(root, "subject01", "Audio"),
+                   os.path.join(root, "subject02", "Audio"))
+        pipes = ModalityPipelines(root, logits_dir=os.path.join(root, "logits"),
+                                  presets={"audio": preset}, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
         t0 = time.perf_counter()
-        write_eeg_subject(os.path.join(root, "EAV"))
-        log(f"synthetic EEG subject written: {time.perf_counter() - t0:.1f} s")
-        check_eeg_preprocess(os.path.join(root, "EAV"), card)
-        logits = os.path.join(root, "logits")
-        pipes = ModalityPipelines(os.path.join(root, "EAV"), cache_dir=os.path.join(root, "cache"),
-                                  logits_dir=logits, presets=presets, device="cuda")
-        for key in presets:
-            t0 = time.perf_counter()
-            res = pipes.run_eeg(1, key)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            test_arch = np.load(os.path.join(logits, f"s01_{key}_test.npy"))
-            train_arch = np.load(os.path.join(logits, f"s01_{key}_train.npy"))
-            hist, m, params = res.artifacts["history"], res.metrics, res.artifacts["params"]
-            norms = {n: float(params[n].flatten(1).norm(dim=1).max()) for n in bounds[key]}
-            log(f"run_eeg ({presets[key].name}, full width, float32, 2 epochs, 280 train / 120 "
-                f"test): {wall:.1f} s; losses {hist['loss'].tolist()}, train acc "
-                f"{hist['train_acc'].tolist()}, test acc {hist['test_acc'].tolist()}, accuracy "
-                f"{m['accuracy']}, load {m['load_seconds']} s, fit {m['fit_seconds']} s, "
-                f"{m['samples_per_sec']} samples/s, archive {m['archive_seconds']} s; archives "
-                f"test {test_arch.shape}, train {train_arch.shape}; max row norms {norms} "
-                f"(max-norm {bounds[key]}) on {card}")
-            if not (np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2):
-                raise AssertionError(f"bad loss history {hist['loss']}")
-            if set(m) != METRICS_KEYS:
-                raise AssertionError(f"metrics keys {sorted(m)} != {sorted(METRICS_KEYS)}")
-            if sum(map(sum, m["confusion"])) != 120:
-                raise AssertionError(f"the confusion matrix does not count 120: {m['confusion']}")
-            if test_arch.shape != (120, 5) or train_arch.shape != (280, 5):
-                raise AssertionError(f"archive shapes {test_arch.shape}, {train_arch.shape}")
-            if not np.isfinite(test_arch).all():
-                raise AssertionError("non-finite test logits")
-            for n, bound in bounds[key].items():
-                if norms[n] > bound * (1 + 1e-5):
-                    raise AssertionError(f"{n} row norm {norms[n]} above its max-norm {bound}")
+        rows = pipes.run_stacked([1, 2], "audio")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in A.KERNELS}
+        arch = [np.load(os.path.join(root, "logits", f"s0{s}_audio_{split}.npy"))
+                for s in (1, 2) for split in ("test", "train")]
+    m = rows[1].metrics
+    hist = [rows[s].artifacts["history"]["loss"].tolist() for s in (1, 2)]
+    log(f"run_stacked (audio, ast_finetune, AST-base bf16, math attention, remat 'attn', S 2, "
+        f"1 frozen + 1 unfrozen epoch): {wall:.1f} s; losses {hist}, fit {m['fit_seconds']} s, "
+        f"{m['samples_per_sec']} samples/s for the group; archive shapes "
+        f"{[a.shape for a in arch]}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; flash launches {launches} on {card}")
+    if set(m) != METRICS_KEYS | {"group_size"} or not np.isfinite(hist).all():
+        raise AssertionError(f"stacked AST rows: keys {sorted(m)}, losses {hist}")
+    if [a.shape for a in arch] != [(10, 5), (30, 5)] * 2:
+        raise AssertionError(f"stacked AST archives {[a.shape for a in arch]}")
+    if any(launches.values()):
+        raise AssertionError(f"a stacked fit launched a flash kernel: {launches}")
+
+
+# -----------------------------------------------------------------------------
+# 16. fusion over the stacked groups' archives
+# -----------------------------------------------------------------------------
+
+
+def run_fusion_phase(card: str, pipes) -> None:
+    """``run_fusion`` (the ``fusion_sweep`` preset's weighted head, 100
+    epochs) of EEGNet's and the conformer's archives in ``pipes``'s
+    ``logits_dir`` for every subject of the stacked conformer group; the
+    fused test logits must be finite."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    mods = ("eeg", "eeg_conformer")
+    accs = []
+    for s in range(1, CONFORMER_GROUP + 1):
+        res = pipes.run_fusion(s, strict=True, mods=mods)
+        if set(res.metrics) != {"accuracy", "weighted_f1"}:
+            raise AssertionError(f"fusion row keys {sorted(res.metrics)}")
+        te = np.stack([np.load(os.path.join(pipes.logits_dir, f"s{s:02d}_{m}_test.npy"))
+                       for m in mods], axis=1).astype(np.float32)
+        fused = pipes._fusion_trainer(len(mods)).predict(te, res.artifacts["params"])
+        if fused.shape != (120, 5) or not np.isfinite(fused).all():
+            raise AssertionError(f"fused logits {fused.shape}, finite {np.isfinite(fused).all()}")
+        accs.append(res.metrics["accuracy"])
+    log(f"run_fusion (fusion_sweep, weighted, 100 epochs, mods {mods}) for subjects "
+        f"1-{CONFORMER_GROUP}: "
+        f"{time.perf_counter() - t0:.1f} s; accuracies {accs}; fused (120, 5) logits finite; "
+        f"on {card}")
 
 
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from eav_tpu_torch.core.config import get_preset
     from eav_tpu_torch.ops import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -807,9 +1312,18 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}; TF32 off for matmuls and cuDNN")
 
+    # the synthetic EEG subject is host work: written while the card runs phases 2-9
+    eeg_root = tempfile.TemporaryDirectory()
+    host = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    eeg_written = host.submit(timed_write_eeg_subject, eeg_root.name)
     t_start = t0 = time.perf_counter()
     build.build("flash_attention")
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    # the subject is written before any timed phase, so that no host work overlaps them
+    log(f"synthetic EEG subject written on a host thread during the build: "
+        f"{eeg_written.result():.1f} s")
+    host.shutdown()
+    mark("2. build")
     usage = build.resource_usage("flash_attention")
     log("registers (spill store bytes) by kernel<D>: " + ", ".join(
         f"{n} {regs} ({spill})" for n, (regs, spill) in sorted(usage.items()) if "mma" in n))
@@ -829,38 +1343,56 @@ def main() -> int:
             f"{plain:.3f} ms, library {lib:.3f} / {lib_run:.3f} ms [{LIBRARY_CALL[n]}], bound "
             f"{bounds[n][0]:.4f} ms by {bounds[n][1]}) at BH {B * H}, T {T_AST}, D {D}, bf16 "
             f"on {card}")
+    mark("3. kernels")
     check_model_and_frontend()
+    mark("4. model and frontend")
 
     launches = run_main_path()
+    mark("5. run_audio")
     time_train_step(card)
     profile_train_step(card)
+    mark("6. AST step")
     # each kernel's launches from its own path: K1-K3 run_audio's, K5 the experiment's
     launches["flash_onepass"] = run_experiment(card)["flash_onepass"]
+    mark("7. experiment")
     run_vision_path()
+    mark("8. run_vision")
     vit_step = "ViT-base, unfrozen, bs 128, uint8 56x56 frames resized in the model, bf16"
     time_train_step(card, "vit_finetune", f"{vit_step}, math attention (the preset)")
     profile_train_step(card, "vit_finetune", top=12)
     # whether the flash kernels should serve T 197: the same step through K1-K3
     time_train_step(card, "vit_finetune", f"{vit_step}, flash kernels", attn_impl="flash")
+    mark("9. ViT step")
 
-    run_eeg_path(card)
-    eeg_step = "EEGNet (eegnet_subject), bs 32, 30 x 500, kern 300, float32, train mode"
-    step_ms = {"conv": [], "fft": []}
-    for mode in ("conv", "fft", "fft", "conv"):  # in turns, on one card
-        step_ms[mode].append(time_train_step(card, "eegnet_subject",
-                                             f"{eeg_step}, temporal_mode {mode}",
-                                             temporal_mode=mode))
-    log(f"EEGNet step, fft / conv in turns: "
-        f"{step_ms['fft'][0] / step_ms['conv'][0]:.3f}, {step_ms['fft'][1] / step_ms['conv'][1]:.3f} "
-        f"(the preset takes {get_preset('eegnet_subject').finetune.model_kwargs['temporal_mode']!r})")
-    device_ms = {mode: profile_train_step(card, "eegnet_subject", top=12, temporal_mode=mode)
-                 for mode in ("conv", "fft")}
-    log(f"EEGNet step, device ms/step under the profiler: conv {device_ms['conv']:.3f}, fft "
-        f"{device_ms['fft']:.3f} (fft / conv {device_ms['fft'] / device_ms['conv']:.3f})")
-    time_train_step(card, "conformer_eeg",
-                    "EEG conformer (conformer_eeg), bs 32, 12 layers, embed 40, T 488, float32, "
-                    "math attention, train mode")
+    run_eeg_path(card, eeg_root.name)
+    mark("10. run_eeg")
+    serial_ms = {"eegnet_subject": eegnet_temporal_modes(card),
+                 "conformer_eeg": time_train_step(
+                     card, "conformer_eeg",
+                     "EEG conformer (conformer_eeg), bs 32, 12 layers, embed 40, T 488, float32, "
+                     "math attention, train mode")}
     profile_train_step(card, "conformer_eeg", top=12)
+    mark("11. EEG steps")
+
+    check_determinism(card, eeg_root.name)
+    mark("12. determinism")
+    run_stacked_eeg(card, eeg_root.name)
+    mark("13. stacked EEG")
+    for preset_name, sizes in (("eegnet_subject", (1, 8, 42)), ("conformer_eeg", (8, 42))):
+        for size in sizes:
+            ms, _ = time_stacked_step(card, preset_name, size,
+                                      f"{preset_name}, bs 32 a subject, float32")
+            log(f"  {preset_name} S {size}: {ms / size:.3f} ms a subject-step against the serial "
+                f"step's {serial_ms[preset_name]:.3f} ms ({serial_ms[preset_name] * size / ms:.2f}x)")
+    mark("14. stacked steps")
+    run_stacked_audio(card)
+    time_stacked_step(card, "ast_finetune", 2,
+                      "AST-base, unfrozen, bs 8 a subject, bf16, math attention, remat 'attn'")
+    mark("15. stacked AST")
+    # fusion's host-bound head fits outside the deterministic mode
+    run_fusion_phase(card, eeg_pipelines(eeg_root.name, "stacked"))
+    mark("16. fusion")
+    eeg_root.cleanup()
 
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():

@@ -1,9 +1,9 @@
 """Dataclass configs and the ``ast_finetune``, ``vit_finetune``,
-``eegnet_subject`` and ``conformer_eeg`` presets.
+``eegnet_subject``, ``conformer_eeg`` and ``fusion_sweep`` presets.
 
-A copy of the parts of ``eav_tpu/core/config.py`` that the audio, vision and
-EEG fine-tunes need: the same field names and defaults, without the fields of
-model families the port does not run yet. ``EEGPreprocConfig`` and
+A copy of the parts of ``eav_tpu/core/config.py`` that the audio, vision,
+EEG and fusion fine-tunes need: the same field names and defaults, without the
+fields of model families the port does not run yet. ``EEGPreprocConfig`` and
 ``VisionPreprocConfig`` are copied whole, so their hashes (the cache keys)
 equal the JAX package's. ``model_kwargs`` maps the presets' dtype names to
 torch dtypes.
@@ -26,6 +26,7 @@ EMOTION_TO_INDEX: Dict[str, int] = {
     "Calmness": 4,
 }
 NUM_CLASSES = 5
+NUM_SUBJECTS = 42
 
 # One-hot rows of the label .mat that correspond to the *listening* tasks kept
 # by the EEG pipeline (reference `Dataload_eeg.py:33`).
@@ -149,12 +150,30 @@ class FinetuneConfig:
     compat_softmax: bool = False
     compat_sticky_eval: bool = False
     shuffle: bool = True
+    # keep every epoch's test logits (the reference's ActivationSaver,
+    # `CNN_audio.py:48-72`): ``TrainResult.epoch_logits``
+    keep_epoch_logits: bool = False
     cache_frozen_features: bool = True
     model_kwargs: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
         if self.eval_batch_size is None:
             object.__setattr__(self, "eval_batch_size", self.batch_size)
+
+
+@dataclass(frozen=True)
+class SweepConfig:
+    """The 42-subject x modality sweep (its runner is not ported yet)."""
+
+    subjects: Tuple[int, ...] = tuple(range(1, NUM_SUBJECTS + 1))
+    modalities: Tuple[str, ...] = ("eeg", "audio", "vision")
+    data_root: str = "./Datasets/EAV"
+    cache_dir: str = "./cache"
+    journal_path: str = "./sweep_journal.jsonl"
+    metrics_path: str = "./metrics.jsonl"
+    checkpoint_dir: Optional[str] = None
+    resume: bool = True
+    max_retries: int = 1
 
 
 @dataclass(frozen=True)
@@ -166,6 +185,7 @@ class PresetConfig:
     eeg: Optional[EEGPreprocConfig] = None
     audio: Optional[AudioPreprocConfig] = None
     vision: Optional[VisionPreprocConfig] = None
+    sweep: Optional[SweepConfig] = None
 
     def replace(self, **kw) -> "PresetConfig":
         return dataclasses.replace(self, **kw)
@@ -249,6 +269,19 @@ def _conformer_finetune() -> FinetuneConfig:
     )
 
 
+def _fusion_finetune() -> FinetuneConfig:
+    # Late fusion of the per-subject models' archived logits
+    # (models/fusion.py); the reference only names it in a dead import
+    # (`CNN_torch/EEGNet_tor.py:4`).
+    return FinetuneConfig(
+        model="fusion",
+        batch_size=32,
+        optimizer="adamw",
+        weight_decay=1e-4,
+        phases=(PhaseConfig(epochs=100, lr=1e-3, freeze=False),),
+    )
+
+
 PRESETS: Dict[str, PresetConfig] = {
     # BASELINE.json config 1
     "eegnet_subject": PresetConfig(
@@ -271,6 +304,17 @@ PRESETS: Dict[str, PresetConfig] = {
         split=SplitConfig(),
         vision=VisionPreprocConfig(face_detection=True),
         finetune=_vit_finetune(),
+    ),
+    # BASELINE.json config 5
+    "fusion_sweep": PresetConfig(
+        name="fusion_sweep",
+        description="Tri-modal EEG+AST+ViT fusion, full 42-subject sweep",
+        split=SplitConfig(),
+        eeg=EEGPreprocConfig(),
+        audio=AudioPreprocConfig(),
+        vision=VisionPreprocConfig(face_detection=True),
+        finetune=_fusion_finetune(),
+        sweep=SweepConfig(),
     ),
     "conformer_eeg": PresetConfig(
         name="conformer_eeg",

@@ -14,7 +14,7 @@ effective torch default, 0.01 in the AST preset, on every trainable parameter;
 from __future__ import annotations
 
 import re
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterable, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -46,27 +46,38 @@ def set_trainable(model: nn.Module, freeze: bool, head_regex: str = HEAD_REGEX) 
         p.requires_grad_(mask[name])
 
 
-def make_optimizer(model: nn.Module, cfg: FinetuneConfig) -> torch.optim.AdamW:
-    """One Adam(W) over every parameter for the whole fit; each phase sets
-    its lr. 'adam' is AdamW without weight decay, as the JAX trainer passes
-    weight_decay 0 for it (`eav_tpu/train/loop.py:341`)."""
+def make_optimizer(params: Union[nn.Module, Iterable[torch.Tensor]],
+                   cfg: FinetuneConfig) -> torch.optim.AdamW:
+    """One Adam(W) over every parameter (of a model, or the given leaves)
+    for the whole fit; each phase sets its lr. 'adam' is AdamW without
+    weight decay, as the JAX trainer passes weight_decay 0 for it
+    (`eav_tpu/train/loop.py:341`). The update is element by element, so one
+    optimizer over leaves stacked on a subject axis is one per subject."""
     if cfg.optimizer not in ("adamw", "adam"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    if isinstance(params, nn.Module):
+        params = params.parameters()
     return torch.optim.AdamW(
-        model.parameters(), lr=cfg.phases[0].lr, betas=(0.9, 0.999), eps=1e-8,
+        params, lr=cfg.phases[0].lr, betas=(0.9, 0.999), eps=1e-8,
         weight_decay=cfg.weight_decay if cfg.optimizer == "adamw" else 0.0,
     )
 
 
 @torch.no_grad()
-def maxnorm_project(model: nn.Module, rules: Sequence[Tuple[str, float, Tuple[int, ...]]]) -> None:
+def maxnorm_project(model: Union[nn.Module, Dict[str, torch.Tensor]],
+                    rules: Sequence[Tuple[str, float, Tuple[int, ...]]],
+                    batch_dims: int = 0) -> None:
     """Rescale in place each parameter whose name matches a rule's regex onto
     the L2 ball of radius ``maxnorm``, the norm taken over the rule's dims
     (per output unit): ``p *= min(1, maxnorm / max(norm, 1e-12))``, the JAX
     package's formula (`eav_tpu/core/optim.py:137-157`) for torch's
-    ``renorm_`` hooks and post-step clamps."""
-    compiled = [(re.compile(rx), mn, dims) for rx, mn, dims in rules]
-    for name, p in model.named_parameters():
+    ``renorm_`` hooks and post-step clamps. ``model`` may be a dict of named
+    leaves with ``batch_dims`` leading axes (a subject stack), which shift
+    the rules' dims."""
+    compiled = [(re.compile(rx), mn, tuple(d + batch_dims for d in dims))
+                for rx, mn, dims in rules]
+    named = model.items() if isinstance(model, dict) else model.named_parameters()
+    for name, p in named:
         for rx, mn, dims in compiled:
             if rx.search(name):
                 norm = p.square().sum(dim=dims, keepdim=True).sqrt()

@@ -1,5 +1,5 @@
-"""Weights across: the JAX package's Flax AST, ViT, EEGNet and EEG conformer
-parameters -> the port's state_dicts.
+"""Weights across: the JAX package's Flax AST, ViT, EEGNet, EEG conformer
+and fusion-head parameters -> the port's state_dicts.
 
 The port keeps the Flax names, so the mapping is mechanical:
 
@@ -134,3 +134,14 @@ def conformer_params_from_jax(params: Mapping[str, Any],
     _batch_norm(sd, "bn", params["bn"], batch_stats["bn"])
     sd["head.weight"] = _head_nchw(params["head"]["kernel"], np.asarray(params["bn"]["scale"]).shape[0])
     return sd
+
+
+def fusion_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax FusionHead params (either mode) -> a state_dict that
+    ``FusionHead.load_state_dict`` takes strictly."""
+    if "fc1" in params:
+        sd: Dict[str, torch.Tensor] = {}
+        _dense(sd, "fc1", params["fc1"])
+        _dense(sd, "head", params["head"])
+        return sd
+    return {name: _t(params[name]) for name in ("log_temp", "weight", "bias")}

@@ -6,11 +6,19 @@ dropout of every model of the port.
 (:func:`set_generator`), so that a fit is deterministic under its seed. The
 mask is Flax's: keep each element with probability 1 - p and scale the kept
 ones by 1 / (1 - p).
+
+A stacked fit (``parallel/subject.py``) runs one model over S subjects under
+``torch.func.vmap``, where one generator would draw one mask for all of them.
+There each subject's masks are drawn outside the vmapped call, from that
+subject's own generator, and handed in as the ``mask`` buffer (a bool tensor
+of the input's shape) through ``functional_call``; a Dropout with a mask
+uses it and draws nothing. :func:`record_dropouts` finds, for a batch, which
+Dropouts a forward draws for and at what shapes, in the forward's order.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,12 +29,29 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None  # None: the global RNG
+        self.register_buffer("mask", None, persistent=False)  # set only by functional_call
+        self.record: Optional[List[Tuple["Dropout", torch.Size]]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        if self.mask is not None:
+            keep = self.mask
+        elif self.record is not None:
+            self.record.append((self, x.shape))
+            return x
+        else:
+            keep = self.draw(x.shape, x.device)
         return x * keep / (1.0 - self.p)
+
+    def draw(self, shape, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """A keep-mask for an input of ``shape``, from ``generator`` (default
+        this Dropout's)."""
+        return torch.rand(shape, generator=generator or self.generator, device=device) >= self.p
+
+    def needs_mask(self) -> bool:
+        """Whether a call now would draw a mask of its own."""
+        return self.training and self.p != 0.0 and self.mask is None and self.record is None
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
@@ -39,29 +64,20 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> Non
             m.generator = generator
 
 
-def replay_generators(fn: Callable, module: nn.Module) -> Callable:
-    """``fn`` for ``torch.utils.checkpoint``: the checkpoint restores the
-    global RNG before it recomputes ``fn`` in the backward, but not an
-    explicit generator. The first call records the state of the generators
-    of ``module``'s dropouts; a later call (the recompute) draws from that
-    state, the same masks, and leaves the generators as it found them."""
-    gens = list({id(m.generator): m.generator for m in module.modules()
-                 if isinstance(m, Dropout) and m.generator is not None}.values())
-    if not gens:
-        return fn
-    states = []
-
-    def run(*args):
-        if not states:
-            states.extend(g.get_state() for g in gens)
-            return fn(*args)
-        after = [g.get_state() for g in gens]
-        for g, s in zip(gens, states):
-            g.set_state(s)
-        try:
-            return fn(*args)
-        finally:
-            for g, s in zip(gens, after):
-                g.set_state(s)
-
-    return run
+def record_dropouts(model: nn.Module, forward: Callable[[], object]) -> List[Tuple[str, torch.Size]]:
+    """Runs ``forward`` (a forward of ``model``) with the active Dropouts
+    drawing nothing and passing their input through -> (module name, input
+    shape) of each of their calls, in the forward's order. A Dropout called
+    twice in one forward raises: one ``mask`` buffer serves one call."""
+    names = {m: n for n, m in model.named_modules() if isinstance(m, Dropout)}
+    calls: List[Tuple[Dropout, torch.Size]] = []
+    for m in names:
+        m.record = calls
+    try:
+        forward()
+    finally:
+        for m in names:
+            m.record = None
+    if len({m for m, _ in calls}) != len(calls):
+        raise RuntimeError("a Dropout is called twice in one forward; one mask serves one call")
+    return [(names[m], shape) for m, shape in calls]

@@ -8,20 +8,29 @@ its statistics and affine in float32 and returns the compute dtype; GELU is
 exact (erf); each sublayer's output is cast back to the residual stream's
 dtype before the add. Parameter names match the Flax tree
 (``ln1``, ``attn.qkv``, ``attn.out``, ``ln2``, ``fc1``, ``fc2``).
+
+Remat recomputes a sublayer in the backward through :class:`Remat`, from
+the sublayer's parameters, buffers and dropout masks given as explicit
+inputs, serial or stacked alike. ``torch.utils.checkpoint`` cannot serve a
+stacked fit (``torch.func.vmap``, ``parallel/subject.py``): it recomputes
+after the vmapped call has returned, on tensors of a vmap level that no
+longer exists, and with the module's own parameters, not the ones
+``functional_call`` swapped in. A stacked fit hands each Dropout its mask;
+a serial one draws the sublayer's mask once, before the forward, so that
+the recompute applies the same mask.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.func import functional_call, vjp
 
-from eav_tpu_torch.models.dropout import Dropout, replay_generators
+from eav_tpu_torch.models.dropout import Dropout
 from eav_tpu_torch.ops.attention import flash_attention
 
 ATTN_IMPLS = ("math", "flash", "auto")
@@ -101,10 +110,51 @@ class MultiHeadSelfAttention(nn.Module):
         return dense(ctx.reshape(b, t, self.hidden), self.out, self.dtype)
 
 
+class Remat(torch.autograd.Function):
+    """``module(x, block=block)`` with nothing kept for the backward but
+    its inputs: ``x`` and ``tensors``, the module's own tensors named
+    ``names`` (the recompute swaps them in with ``functional_call``). Its
+    vmap rule is generated, so it runs inside ``torch.func.vmap``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(module, block, names, x, *tensors):
+        with torch.no_grad():
+            return functional_call(module, dict(zip(names, tensors)), (x,), {"block": block})
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        module, block, names, x, *tensors = inputs
+        ctx.module, ctx.block, ctx.names = module, block, names
+        ctx.save_for_backward(x, *tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *tensors = ctx.saved_tensors
+        diff = [i for i, t in enumerate(tensors) if t.is_floating_point()]  # not the masks
+
+        def block(x, *floats):
+            given = list(tensors)
+            for i, t in zip(diff, floats):
+                given[i] = t
+            return functional_call(ctx.module, dict(zip(ctx.names, given)), (x,),
+                                   {"block": ctx.block})
+
+        _, pull = vjp(block, x, *(tensors[i] for i in diff))
+        grads = pull(grad)
+        out = [None] * len(tensors)
+        for i, g in zip(diff, grads[1:]):
+            out[i] = g
+        return (None, None, None, grads[0], *out)
+
+
 class TransformerLayer(nn.Module):
     """Pre-LN block. ``remat``: 'none' keeps every activation for the
     backward; 'attn' recomputes the attention sublayer in the backward;
     'full' recomputes both sublayers."""
+
+    _BLOCK_MODULES = {"attn": ("ln1", "attn", "drop_attn"), "mlp": ("ln2", "fc1", "fc2", "drop_mlp")}
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int, eps: float = 1e-12,
                  dropout: float = 0.0, attn_impl: str = "math",
@@ -118,27 +168,39 @@ class TransformerLayer(nn.Module):
         self.ln2 = nn.LayerNorm(hidden, eps=eps)
         self.fc1 = nn.Linear(hidden, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, hidden)
-        self.drop = Dropout(dropout)
+        # one dropout a sublayer, both drawing from the trainer's one generator
+        self.drop_attn = Dropout(dropout)
+        self.drop_mlp = Dropout(dropout)
 
     def _attn_block(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop(self.attn(layer_norm(x, self.ln1, self.dtype)))
+        return self.drop_attn(self.attn(layer_norm(x, self.ln1, self.dtype)))
 
     def _mlp_block(self, x: torch.Tensor) -> torch.Tensor:
         z = dense(layer_norm(x, self.ln2, self.dtype), self.fc1, self.dtype)
         z = dense(F.gelu(z, approximate="none"), self.fc2, self.dtype)
-        return self.drop(z)
+        return self.drop_mlp(z)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        attn, mlp = self._attn_block, self._mlp_block
-        if torch.is_grad_enabled():
-            if self.remat in ("attn", "full"):
-                attn = functools.partial(checkpoint, replay_generators(self._attn_block, self),
-                                         use_reentrant=False)
-            if self.remat == "full":
-                mlp = functools.partial(checkpoint, replay_generators(self._mlp_block, self),
-                                        use_reentrant=False)
-        x = x + attn(x).to(x.dtype)
-        return x + mlp(x).to(x.dtype)
+    def _remat(self, block: str, x: torch.Tensor) -> torch.Tensor:
+        tensors = {}
+        for name in self._BLOCK_MODULES[block]:
+            sub = getattr(self, name)
+            tensors.update((f"{name}.{k}", v) for k, v in sub.named_parameters())
+            tensors.update((f"{name}.{k}", v) for k, v in sub.named_buffers())  # a stack's masks
+            if isinstance(sub, Dropout) and sub.needs_mask():
+                # the sublayer's output has x's shape; its one mask serves the recompute too
+                tensors[f"{name}.mask"] = sub.draw(x.shape, x.device)
+        return Remat.apply(self, block, tuple(tensors), x, *tensors.values())
+
+    def forward(self, x: torch.Tensor, block: Optional[str] = None) -> torch.Tensor:
+        """The layer; with ``block`` 'attn' or 'mlp', that sublayer's output
+        alone (what remat recomputes)."""
+        if block is not None:
+            return self._attn_block(x) if block == "attn" else self._mlp_block(x)
+        remat = self.remat if torch.is_grad_enabled() else "none"
+        attn = self._remat("attn", x) if remat in ("attn", "full") else self._attn_block(x)
+        x = x + attn.to(x.dtype)
+        mlp = self._remat("mlp", x) if remat == "full" else self._mlp_block(x)
+        return x + mlp.to(x.dtype)
 
 
 class TransformerEncoder(nn.Module):

@@ -286,29 +286,55 @@ def reset_launches() -> None:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention on head-major (BH, T, D) operands: K1 forward, K2 and K3
-    backward (the JAX package's ``custom_vjp`` pair)."""
+    """Attention on head-major (BH, T, D) operands -> (O, LSE): K1 forward,
+    K2 and K3 backward (the JAX package's ``custom_vjp`` pair). LSE is
+    returned (not differentiable) so that the backward can keep it: with a
+    separate ``setup_context`` the function also runs under ``torch.func``'s
+    ``vjp``, as a remat recompute (``models/transformer.Remat``) calls it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, t_real: int):
-        o, lse = flash_fwd(q, k, v, t_real)
+    def forward(q, k, v, t_real: int):
+        return flash_fwd(q, k, v, t_real)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, t_real = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.t_real = t_real
-        return o
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
+        return (*FlashAttentionBackward.apply(q, k, v, o, lse, do, ctx.t_real), None)
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """(q, k, v, O, LSE, dO) -> (dQ, dK, dV): rowsum(dO * O), then K2 and K3.
+    A function of its own because under ``torch.func`` a backward sees the
+    transform's wrapped tensors, which have no data pointer for a kernel;
+    only a function's forward gets plain ones. Not differentiable again."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, t_real: int):
         do = do.contiguous()
         di = (do.float() * o.float()).sum(dim=-1)
-        dk, dv = flash_dkv(q, k, v, do, lse, di, ctx.t_real)
-        dq = flash_dq(q, k, v, do, lse, di, ctx.t_real)
-        return dq, dk, dv, None
+        dk, dv = flash_dkv(q, k, v, do, lse, di, t_real)
+        return flash_dq(q, k, v, do, lse, di, t_real), dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the flash attention backward is not differentiable")
 
 
 def flash_attention_bh(q, k, v, t_real: int):
     """q, k, v (BH, T_pad, D) with keys past ``t_real`` masked -> o, same layout."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), t_real)
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), t_real)[0]
 
 
 def _to_bh(x):
@@ -319,7 +345,7 @@ def _to_bh(x):
 def flash_attention(q, k, v):
     """Multi-head attention in the (B, T, H, D) layout, scale 1/sqrt(D)."""
     b, t, h, d = q.shape
-    o = FlashAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), t)
+    o = flash_attention_bh(_to_bh(q), _to_bh(k), _to_bh(v), t)
     return o.reshape(b, h, t, d).permute(0, 2, 1, 3)
 
 

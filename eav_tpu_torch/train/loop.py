@@ -18,7 +18,12 @@ Protocol, as in the JAX trainer and the reference (`Transformer_Audio.py`):
   ``compat_sticky_eval`` (a phase's epochs after its first train with the
   model in eval mode), the reference's quirks the EEG presets replicate;
 - dropout masks from one generator on the trainer's device, seeded per fit
-  (``models/dropout.py``), so a fit is deterministic under its seed.
+  (``models/dropout.py``), so a fit repeats under its seed on the CPU; on
+  the card, torch's backward kernels may sum in another order each run, and
+  ``deterministic=True`` runs the fit under
+  ``torch.use_deterministic_algorithms`` (``core/device.py``) so that it
+  repeats there too;
+- ``keep_epoch_logits``: every epoch's test logits in ``epoch_logits``.
 
 PyTorch runs eagerly, so the JAX trainer's XLA and TPU devices (phase
 programs compiled with ``lax.scan``, chunked epochs, device placement
@@ -36,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eav_tpu_torch.core.config import FinetuneConfig
-from eav_tpu_torch.core.device import resolve_device
+from eav_tpu_torch.core.device import deterministic_algorithms, resolve_device
 from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, maxnorm_project, set_trainable
 from eav_tpu_torch.models.dropout import set_generator
 
@@ -45,6 +50,8 @@ class TrainResult(NamedTuple):
     params: Dict[str, torch.Tensor]  # the trained state_dict, copied to the CPU
     history: Dict[str, np.ndarray]  # per-epoch loss, train_acc, test_acc
     outputs_test: np.ndarray  # (n_test, num_classes) final-phase logits
+    # (epochs, n_test, num_classes) with cfg.keep_epoch_logits
+    epoch_logits: Optional[np.ndarray] = None
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -65,11 +72,12 @@ class Trainer:
     its optional ``maxnorm_rules`` are projected after every step."""
 
     def __init__(self, model: nn.Module, cfg: FinetuneConfig,
-                 head_regex: str = HEAD_REGEX, device="cuda"):
+                 head_regex: str = HEAD_REGEX, device="cuda", deterministic: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.head_regex = head_regex
+        self.deterministic = deterministic
         self.maxnorm_rules = tuple(getattr(model, "maxnorm_rules", ()))
 
     def _frozen_cache_ok(self) -> bool:
@@ -139,7 +147,13 @@ class Trainer:
         """``data`` = (tr_x, tr_y, te_x, te_y), arrays or tensors. The model
         is re-initialized from ``seed`` (default ``cfg.seed``);
         ``init_params`` (a possibly partial state_dict, e.g. pretrained
-        weights) then replaces the matching parameters. Unknown keys raise."""
+        weights) then replaces the matching parameters. Unknown keys raise.
+        With the trainer's ``deterministic``, the fit runs under
+        ``torch.use_deterministic_algorithms(True)``."""
+        with deterministic_algorithms(self.deterministic):
+            return self._fit(data, seed, init_params)
+
+    def _fit(self, data, seed, init_params) -> TrainResult:
         cfg = self.cfg
         tr_x, te_x = self._to_device(data[0]), self._to_device(data[2])
         tr_y = torch.as_tensor(np.asarray(data[1]).reshape(-1), dtype=torch.long, device=self.device)
@@ -157,6 +171,7 @@ class Trainer:
         bs = min(cfg.batch_size, n_train)
 
         hist = {"loss": [], "train_acc": [], "test_acc": []}
+        epoch_logits = []
         te_logits = None
         for phase in cfg.phases:
             set_trainable(self.model, phase.freeze, self.head_regex)
@@ -185,7 +200,10 @@ class Trainer:
                 hist["loss"].append(torch.stack(losses).mean())
                 hist["train_acc"].append(torch.stack(correct).sum() / n_train)
                 hist["test_acc"].append((te_logits.argmax(-1) == te_y).float().mean())
+                if cfg.keep_epoch_logits:
+                    epoch_logits.append(te_logits)
         set_trainable(self.model, False)
         history = {k: torch.stack(v).float().cpu().numpy() for k, v in hist.items()}
         params = {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
-        return TrainResult(params, history, te_logits.float().cpu().numpy())
+        kept = torch.stack(epoch_logits).float().cpu().numpy() if epoch_logits else None
+        return TrainResult(params, history, te_logits.float().cpu().numpy(), kept)

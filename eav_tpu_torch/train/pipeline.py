@@ -1,13 +1,17 @@
 """The per-(subject, modality) tasks: ingest -> EAV split -> fine-tune ->
 metrics, as ``eav_tpu/train/pipeline.py`` runs them for the ``eegnet_subject``
-and ``conformer_eeg`` (EEG), ``ast_finetune`` (audio) and ``vit_finetune``
-(vision) presets.
+and ``conformer_eeg`` (EEG), ``ast_finetune`` (audio), ``vit_finetune``
+(vision) and ``fusion_sweep`` (late fusion of the archived logits) presets;
+``run_stacked`` fits a group of subjects of one modality as one stacked
+program (``parallel/subject.py``).
 
 Preprocessed EEG trials, fbanks and decoded frame stacks are cached as
 ``.npz`` per (subject, config hash) when a cache directory is given, under
 the JAX package's keys, and read back through ``fast_npz_load``; logits are
 archived per subject when a logits directory is given (the vision ones
-trial-voted). The metrics row has the JAX package's keys.
+trial-voted). The metrics row has the JAX package's keys. The fits run
+under torch's deterministic mode when the pipelines are built with
+``deterministic=True`` (``core/device.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import json
 import os
 import time
 from dataclasses import asdict
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +49,11 @@ def default_presets() -> Dict[str, PresetConfig]:
         "eeg_conformer": get_preset("conformer_eeg"),
         "audio": get_preset("ast_finetune"),
         "vision": get_preset("vit_finetune"),
+        "fusion": get_preset("fusion_sweep"),
     }
+
+
+NOT_PORTED = ("audio_scnn", "vision_resnet")  # the JAX package's other modality keys
 
 
 def _cfg_hash(cfg) -> str:
@@ -76,31 +84,38 @@ def _cached(cache_dir: Optional[str], key: str,
     return x, y
 
 
-def build_model(preset: PresetConfig):
-    """The model of a preset's finetune config."""
+def build_model(preset: PresetConfig, **overrides):
+    """The model of a preset's finetune config; ``overrides`` replace its
+    model kwargs."""
     name = preset.finetune.model
+    kwargs = {**model_kwargs(preset), **overrides}
     if name == "eegnet":
         from eav_tpu_torch.models.eegnet import EEGNet
 
-        return EEGNet(**model_kwargs(preset))
+        return EEGNet(**kwargs)
     if name == "conformer_eeg":
         from eav_tpu_torch.models.conformer_eeg import ConformerEEG
 
-        return ConformerEEG(**model_kwargs(preset))
+        return ConformerEEG(**kwargs)
     if name == "ast":
         from eav_tpu_torch.models.ast import AST
 
-        return AST(**model_kwargs(preset))
+        return AST(**kwargs)
     if name == "vit":
         from eav_tpu_torch.models.vit import ViT
 
-        return ViT(**model_kwargs(preset))
+        return ViT(**kwargs)
+    if name == "fusion":
+        from eav_tpu_torch.models.fusion import FusionHead
+
+        return FusionHead(**kwargs)
     raise KeyError(f"model {name!r} is not ported yet")
 
 
 class ModalityPipelines:
     """Task functions bound to a data root, cache and logit directories, and
-    a device (``"cuda"`` unless the caller passes another)."""
+    a device (``"cuda"`` unless the caller passes another); ``deterministic``
+    runs every fit under torch's deterministic mode."""
 
     def __init__(
         self,
@@ -110,26 +125,31 @@ class ModalityPipelines:
         presets: Optional[Dict[str, PresetConfig]] = None,
         seed: int = 0,
         device="cuda",
+        deterministic: bool = False,
     ):
         self.data_root = data_root
         self.cache_dir = cache_dir
         self.logits_dir = logits_dir
         self.seed = seed
         self.device = resolve_device(device)
+        self.deterministic = deterministic
         self.presets = presets or default_presets()
         self._trainers: Dict[str, Trainer] = {}  # one per preset, reused across subjects
 
     def _trainer(self, preset_key: str, preset: PresetConfig) -> Trainer:
         t = self._trainers.get(preset_key)
         if t is None:
-            t = Trainer(build_model(preset), preset.finetune, device=self.device)
+            t = Trainer(build_model(preset), preset.finetune, device=self.device,
+                        deterministic=self.deterministic)
             self._trainers[preset_key] = t
         return t
 
     def load_eeg(self, subject: int, preset_key: str = "eeg"):
         """(trials (N, ch, samples), labels) of a subject's EEG, preprocessed
-        on the pipelines' device."""
-        cfg = self.presets[preset_key].eeg or EEGPreprocConfig()
+        on the pipelines' device. A preset without an EEG config takes the
+        ``eeg`` preset's, as the JAX package does."""
+        preset = self.presets.get(preset_key) or self.presets["eeg"]
+        cfg = preset.eeg or (self.presets["eeg"].eeg or EEGPreprocConfig())
 
         def compute():
             from eav_tpu_torch.ingest.eeg import DataLoadEEG
@@ -172,26 +192,29 @@ class ModalityPipelines:
             np.save(f, logits)
         os.replace(tmp, path)
 
-    def _finish(self, subject, modality, result, te_y, vote_group: Optional[int] = None,
-                fit_seconds: Optional[float] = None, n_train: Optional[int] = None,
-                load_seconds: Optional[float] = None,
-                archive_seconds: Optional[float] = None) -> TaskResult:
-        """The metrics row (the JAX package's keys) and the test-logit
-        archive. With ``vote_group`` the test rows are frames: they are voted
+    def _score(self, subject: int, modality: str, logits: np.ndarray, te_y,
+               vote_group: Optional[int] = None) -> dict:
+        """Accuracy, weighted F1 and confusion of the test logits, which are
+        archived. With ``vote_group`` the test rows are frames: they are voted
         per trial (the preset's ``vote_mode``) and the archive holds the
         trial-mean logits."""
-        logits = result.outputs_test
         if vote_group:
             tl, pred = M.trial_vote(logits, vote_group)
             if self.presets[modality].finetune.vote_mode == "majority":
                 pred = M.trial_majority_vote(logits, vote_group, NUM_CLASSES)
             te_y_trial = np.asarray(te_y).reshape(-1, vote_group)[:, 0]
-            summary = M.classification_summary(te_y_trial, pred, NUM_CLASSES)
             self._save_logits(subject, modality, "test", tl.numpy())
-        else:
-            pred = np.argmax(logits, axis=-1)
-            summary = M.classification_summary(np.asarray(te_y), pred, NUM_CLASSES)
-            self._save_logits(subject, modality, "test", logits)
+            return M.classification_summary(te_y_trial, pred, NUM_CLASSES)
+        self._save_logits(subject, modality, "test", logits)
+        return M.classification_summary(np.asarray(te_y), np.argmax(logits, axis=-1), NUM_CLASSES)
+
+    def _finish(self, subject, modality, result, te_y, vote_group: Optional[int] = None,
+                fit_seconds: Optional[float] = None, n_train: Optional[int] = None,
+                load_seconds: Optional[float] = None,
+                archive_seconds: Optional[float] = None) -> TaskResult:
+        """The metrics row (the JAX package's keys) and the test-logit
+        archive (``_score``)."""
+        summary = self._score(subject, modality, result.outputs_test, te_y, vote_group)
         epochs = int(len(result.history["test_acc"]))
         metrics = {
             "accuracy": summary["accuracy"],
@@ -305,3 +328,164 @@ class ModalityPipelines:
         return self._finish(subject, key, result, te_fy, vote_group=fps,
                             fit_seconds=fit_s, n_train=len(tr_f),
                             load_seconds=load_s, archive_seconds=archive_s)
+
+    def _stack_splits(self, subjects: Sequence[int], modality: str):
+        """The EAV splits of ``subjects`` stacked on a subject axis (vision:
+        flattened to frames) -> ((tr_x, tr_y, te_x, te_y) as arrays, frames
+        per trial or None)."""
+        from eav_tpu_torch.ingest.vision import flatten_trials_to_frames, preprocess_frames
+
+        preset = self.presets[modality]
+        loaders = {
+            "eeg": lambda s: self.load_eeg(s, "eeg"),
+            "eeg_conformer": lambda s: self.load_eeg(s, "eeg_conformer"),
+            "audio": self.load_audio,
+            "vision": self.load_vision,
+        }
+        vote_group, splits = None, []
+        for s in subjects:
+            x, y = loaders[modality](s)
+            sp = eav_split(x, y, h_idx=preset.split.h_idx, num_classes=preset.split.num_classes)
+            if modality == "vision":
+                vote_group = int(x.shape[1])  # frames per trial
+                (tr_f, tr_fy), (te_f, te_fy) = (flatten_trials_to_frames(sp[0], sp[1]),
+                                                flatten_trials_to_frames(sp[2], sp[3]))
+                kw = preset.finetune.model_kwargs or {}
+                if not kw.get("preprocess_uint8"):
+                    size = kw.get("image_size", 224)
+                    tr_f = preprocess_frames(tr_f, size=size, device=self.device)
+                    te_f = preprocess_frames(te_f, size=size, device=self.device)
+                sp = (tr_f, tr_fy, te_f, te_fy)
+            splits.append(tuple(np.asarray(a) for a in sp))
+        shapes = {sp[0].shape for sp in splits}
+        if len(shapes) != 1:
+            raise ValueError(f"subjects have inconsistent split shapes: {shapes}")
+        return tuple(np.stack([sp[i] for sp in splits]) for i in range(4)), vote_group
+
+    def run_stacked(self, subjects: Sequence[int], modality: str = "eeg") -> Dict[int, TaskResult]:
+        """The fits of ``subjects`` of one modality as one stacked program
+        (``parallel/subject.py``), each at the seed its serial fit takes, with
+        the serial metrics rows plus ``group_size``; ``fit_seconds`` and
+        ``load_seconds`` are the group's, ``samples_per_sec`` the group's
+        aggregate. Both splits' logits are archived for every subject (the
+        vision ones trial-voted), so fusion can follow.
+
+        A stacked transformer runs math attention (``'auto'`` or
+        ``'flash'`` resolve to ``'math'``: the flash kernels have no vmap
+        rule) and recomputes its attention sublayer in the backward (remat
+        ``'none'`` becomes ``'attn'``), as the JAX package's stacked
+        programs do."""
+        from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
+
+        if modality in NOT_PORTED:
+            raise KeyError(f"modality {modality!r} is not ported yet")
+        if modality not in ("eeg", "eeg_conformer", "audio", "vision"):
+            raise KeyError(f"run_stacked does not support modality {modality!r}")
+        preset = self.presets[modality]
+        t0 = time.perf_counter()
+        stack, vote_group = self._stack_splits(subjects, modality)
+        load_s = time.perf_counter() - t0
+        overrides = {}
+        if preset.finetune.model in ("ast", "vit"):
+            kw = preset.finetune.model_kwargs or {}
+            if kw.get("attn_impl", "math") in ("auto", "flash"):
+                overrides["attn_impl"] = "math"
+            if kw.get("remat", "none") == "none":
+                overrides["remat"] = "attn"
+        trainer = SubjectParallelTrainer(build_model(preset, **overrides), preset.finetune,
+                                         device=self.device, deterministic=self.deterministic)
+        t0 = time.perf_counter()
+        stacked = trainer.fit_stacked(stack, seeds=[self.seed + s for s in subjects])
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr_logits = trainer.predict(stack[0], stacked.params) if self.logits_dir else None
+        predict_s = time.perf_counter() - t0
+        epochs = int(stacked.history["test_acc"].shape[1])
+        n_train = int(stack[0].shape[1])
+        out: Dict[int, TaskResult] = {}
+        for i, s in enumerate(subjects):
+            t0 = time.perf_counter()
+            summary = self._score(s, modality, stacked.outputs_test[i], stack[3][i], vote_group)
+            if tr_logits is not None:
+                tl = tr_logits[i]
+                self._save_logits(s, modality, "train",
+                                  M.trial_vote(tl, vote_group)[0].numpy() if vote_group else tl)
+            out[s] = TaskResult(
+                metrics={
+                    "accuracy": summary["accuracy"],
+                    "weighted_f1": summary["weighted_f1"],
+                    "confusion": summary["confusion"],
+                    "final_train_acc": float(stacked.history["train_acc"][i, -1]),
+                    "epochs": epochs,
+                    "fit_seconds": round(fit_s, 3),
+                    "group_size": len(subjects),
+                    "samples_per_sec": round(len(subjects) * epochs * n_train / fit_s, 2),
+                    "load_seconds": round(load_s, 3),
+                    # the group's train-split predict, shared, plus this subject's saves
+                    "archive_seconds": round(predict_s + time.perf_counter() - t0, 3),
+                },
+                artifacts={"params": {k: v[i] for k, v in stacked.params.items()},
+                           "history": {k: v[i] for k, v in stacked.history.items()}},
+            )
+        return out
+
+    def run_eeg_stacked(self, subjects: Sequence[int]) -> Dict[int, TaskResult]:
+        return self.run_stacked(subjects, "eeg")
+
+    def run_fusion(self, subject: int, strict: bool = True,
+                   mods: Tuple[str, ...] = ("eeg", "audio", "vision")) -> TaskResult:
+        """Late fusion over the archived per-trial logits of ``mods``
+        (BASELINE.json config 5). ``strict`` requires equal, class-divisible
+        row counts across modalities: truncating would misalign the
+        per-class blocks the labels are rebuilt from. With ``strict=False``
+        the labels cover the common prefix."""
+        if self.logits_dir is None:
+            raise ValueError("run_fusion requires logits_dir (archived per-trial logits)")
+
+        def load(split):
+            parts = [np.load(os.path.join(self.logits_dir, f"s{subject:02d}_{m}_{split}.npy"))
+                     for m in mods]
+            lens = {m: len(p) for m, p in zip(mods, parts)}
+            n = min(lens.values())
+            if strict and (len(set(lens.values())) != 1 or n % NUM_CLASSES != 0):
+                raise ValueError(
+                    f"modality logit counts misaligned for subject {subject}: {lens} "
+                    "(per-class blocks would not line up; re-archive logits)")
+            n -= n % NUM_CLASSES
+            return np.stack([p[:n] for p in parts], axis=1).astype(np.float32)
+
+        tr, te = load("train"), load("test")
+        # labels follow eav_split's layout: per-class blocks in class order
+        tr_y = np.repeat(np.arange(NUM_CLASSES), tr.shape[0] // NUM_CLASSES)
+        te_y = np.repeat(np.arange(NUM_CLASSES), te.shape[0] // NUM_CLASSES)
+        result = self._fusion_trainer(tr.shape[1]).fit((tr, tr_y, te, te_y),
+                                                      seed=self.seed + subject)
+        summary = M.classification_summary(te_y, np.argmax(result.outputs_test, -1), NUM_CLASSES)
+        return TaskResult(metrics={"accuracy": summary["accuracy"],
+                                   "weighted_f1": summary["weighted_f1"]},
+                          artifacts={"params": result.params})
+
+    def _fusion_trainer(self, n_mods: int) -> Trainer:
+        """The fusion head's trainer for ``n_mods`` modalities, one per count."""
+        key = f"fusion#{n_mods}"
+        t = self._trainers.get(key)
+        if t is None:
+            preset = self.presets["fusion"]
+            t = Trainer(build_model(preset, num_modalities=n_mods), preset.finetune,
+                        device=self.device, deterministic=self.deterministic)
+            self._trainers[key] = t
+        return t
+
+    def task_fn(self, subject: int, modality: str) -> TaskResult:
+        """One sweep task: the serial fit of ``modality`` for ``subject``."""
+        if modality in ("eeg", "eeg_conformer"):
+            return self.run_eeg(subject, modality)
+        if modality == "audio":
+            return self.run_audio(subject)
+        if modality == "vision":
+            return self.run_vision(subject)
+        if modality == "fusion":
+            return self.run_fusion(subject)
+        if modality in NOT_PORTED:
+            raise KeyError(f"modality {modality!r} is not ported yet")
+        raise KeyError(f"unknown modality {modality!r}")

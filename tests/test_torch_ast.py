@@ -124,7 +124,8 @@ def test_remat_replays_the_dropout_generator(rng, remat):
     for mode in ("none", remat):
         m = ast_tiny(dropout=0.3, remat=mode).train()
         assert not any(isinstance(s, torch.nn.Dropout) for s in m.modules())
-        assert sum(isinstance(s, Dropout) for s in m.modules()) == 3  # pos_drop + one a layer
+        # pos_drop + one a sublayer (two a layer), all drawing from one generator
+        assert sum(isinstance(s, Dropout) for s in m.modules()) == 5
         gen = torch.Generator().manual_seed(7)
         set_generator(m, gen)
         m(x).square().sum().backward()
@@ -133,6 +134,40 @@ def test_remat_replays_the_dropout_generator(rng, remat):
     assert torch.equal(states[0], states[1])
     for n in grads[0]:
         torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("remat", ["attn", "full"])
+def test_remat_runs_the_flash_function(rng, remat):
+    """The recompute runs the flash autograd function (its plain versions on
+    the CPU) under ``torch.func.vjp``, with dropout on: every gradient equals
+    that of the run that keeps its activations."""
+    x = torch.from_numpy(rng.normal(size=(2, 128, 128)).astype(np.float32))
+    grads = []
+    for mode in ("none", remat):
+        m = ast_tiny(dropout=0.3, attn_impl="flash", remat=mode).train()
+        set_generator(m, torch.Generator().manual_seed(7))
+        m(x).square().sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6, atol=1e-6)
+
+
+def test_remat_hands_the_kernels_plain_tensors(rng, monkeypatch):
+    """Under the recompute's ``torch.func.vjp`` a kernel wrapper must be
+    given tensors with a data pointer, as a launch needs on the card: each
+    wrapper here reads its operands' pointers before its plain version."""
+    from eav_tpu_torch.ops import attention as A
+
+    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
+        def reads_pointers(*args, _fn=getattr(A, name)):
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    a.data_ptr()
+            return _fn(*args)
+
+        monkeypatch.setattr(A, name, reads_pointers)
+    x = torch.from_numpy(rng.normal(size=(2, 128, 128)).astype(np.float32))
+    ast_tiny(attn_impl="flash", remat="attn").train()(x).square().sum().backward()
 
 
 def test_dropout_masks_follow_the_generator(rng):

@@ -1,15 +1,24 @@
 """The CUDA flash-attention kernels (K1-K3 and the one-pass K5) against their
-plain versions on the card.
+plain versions on the card, and a fit that repeats bit for bit on the card
+under the trainer's deterministic mode.
 
 These need a GPU with the CUDA toolkit (the kernels are built with nvcc at
 first use), so they carry the ``cuda`` marker and skip elsewhere. Run them on
 a GPU host with ``python -m pytest tests/test_torch_cuda.py``.
 """
 
-import pytest
-import torch
+import os
 
-from eav_tpu_torch.ops import attention as A
+# cuBLAS is deterministic only with this workspace setting in place before the
+# process's first cuBLAS call, which an earlier test here may make; it has no
+# effect without a GPU
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from eav_tpu_torch.ops import attention as A  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +136,49 @@ def test_onepass_refuses_a_stripe_past_shared_memory(cuda, dtype):
     with pytest.raises(ValueError, match="shared memory"):
         A.flash_onepass(q, k, v, t_max + 1)
     assert A.flash_onepass.launches == 1
+
+
+def test_deterministic_fit_repeats_on_the_card(cuda):
+    """A tiny conformer, dropout 0.5, shuffled batches: two fits under one
+    seed in the deterministic mode give the same history and test logits,
+    bit for bit."""
+    from eav_tpu_torch.core.config import FinetuneConfig, PhaseConfig
+    from eav_tpu_torch.models.conformer_eeg import ConformerEEG
+    from eav_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=(20, 4, 100)).astype(np.float32), rng.integers(0, 5, 20),
+            rng.normal(size=(8, 4, 100)).astype(np.float32), rng.integers(0, 5, 8))
+    cfg = FinetuneConfig(model="conformer_eeg", batch_size=8, optimizer="adam",
+                         weight_decay=0.0, phases=(PhaseConfig(3, 1e-3, False),),
+                         compat_softmax=True)
+    trainer = Trainer(ConformerEEG(chans=4, samples=100, num_layers=2, dropout=0.5), cfg,
+                      device=cuda, deterministic=True)
+    a, b = trainer.fit(data, seed=3), trainer.fit(data, seed=3)
+    for k in ("loss", "train_acc", "test_acc"):
+        np.testing.assert_array_equal(a.history[k], b.history[k], err_msg=k)
+    np.testing.assert_array_equal(a.outputs_test, b.outputs_test)
+
+
+@pytest.mark.parametrize("remat", ["attn", "full"])
+def test_remat_recomputes_through_the_kernels(cuda, remat):
+    """A tiny AST with flash attention and dropout: the remat recompute runs
+    K1 again under ``torch.func.vjp`` and K2/K3 in its backward, and every
+    gradient equals that of the run that keeps its activations."""
+    from eav_tpu_torch.models.ast import ast_tiny
+    from eav_tpu_torch.models.dropout import set_generator
+
+    x = torch.randn(2, 128, 128, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    grads, launches = [], []
+    for mode in ("none", remat):
+        m = ast_tiny(dropout=0.3, attn_impl="flash", remat=mode).to(cuda).train()
+        set_generator(m, torch.Generator(device=cuda).manual_seed(7))
+        A.reset_launches()
+        m(x).square().sum().backward()
+        launches.append([fn.launches for fn in A.KERNELS])
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    assert launches[0][1:3] == launches[1][1:3] != [0, 0]
+    assert launches[1][0] > launches[0][0]  # the recompute's forwards
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-5, atol=1e-5)

@@ -199,7 +199,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not BLOCKED & {m.split(".")[0] for m in sys.modules}
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -207,7 +207,9 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX, REPO], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 34  # every module was imported
+    names = out.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 37  # every module was imported
+    assert {"eav_tpu_torch.parallel.subject", "eav_tpu_torch.models.fusion"} <= set(names)
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):
@@ -314,3 +316,36 @@ def test_default_presets_and_models():
     eegnet = build_model(presets["eeg"])
     assert isinstance(eegnet, EEGNet) and eegnet.temporal_mode == "conv"
     assert isinstance(build_model(presets["eeg_conformer"]), ConformerEEG)
+
+
+def test_load_eeg_falls_back_to_the_eeg_presets_config(tmp_path, rng):
+    """A preset without an EEG config (``eeg_conformer`` here) preprocesses
+    with the ``eeg`` preset's (a non-default one), as eav_tpu's load_eeg
+    does: the same cache file and the same trials in both packages."""
+    from eav_tpu.core.config import EEGPreprocConfig as JaxEEGPreprocConfig
+    from eav_tpu.core.config import FinetuneConfig as JaxFinetuneConfig
+    from eav_tpu.core.config import PhaseConfig as JaxPhaseConfig
+    from eav_tpu.core.config import PresetConfig as JaxPresetConfig
+    from eav_tpu.core.config import SplitConfig as JaxSplitConfig
+
+    _eeg_subject(tmp_path / "EAV", rng)
+    presets = {"eeg": _eeg_preset("eegnet"),
+               "eeg_conformer": _eeg_preset("conformer_eeg").replace(eeg=None)}
+    jax_ft = JaxFinetuneConfig(model="conformer_eeg", batch_size=8,
+                               phases=(JaxPhaseConfig(2, 1e-3, False),))
+    jax_eeg = JaxEEGPreprocConfig(channels=6, trial_seconds=8.0, chunk_seconds=2.0)
+    jax_presets = {
+        "eeg": JaxPresetConfig(name="eegnet", description="", split=JaxSplitConfig(h_idx=6),
+                               eeg=jax_eeg, finetune=jax_ft),
+        "eeg_conformer": JaxPresetConfig(name="conformer", description="",
+                                         split=JaxSplitConfig(h_idx=6), finetune=jax_ft),
+    }
+    want_x, want_y = JaxPipelines(str(tmp_path / "EAV"), cache_dir=str(tmp_path / "jax"),
+                                  presets=jax_presets).load_eeg(1, "eeg_conformer")
+    got_x, got_y = ModalityPipelines(str(tmp_path / "EAV"), cache_dir=str(tmp_path / "torch"),
+                                     presets=presets, device="cpu").load_eeg(1, "eeg_conformer")
+    assert os.listdir(tmp_path / "torch") == os.listdir(tmp_path / "jax")
+    assert got_x.shape == (40, 6, 200)
+    np.testing.assert_array_equal(got_y, want_y)
+    scale = float(np.abs(want_x).max())
+    np.testing.assert_allclose(got_x, want_x, rtol=0, atol=1e-5 * scale)
