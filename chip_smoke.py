@@ -454,7 +454,10 @@ def write_subject(root: str, subject: int = 1, files: int = 10, seconds: int = 2
                   tone + 0.05 * rng.standard_normal(t.size), sr)
 
 
-def run_main_path() -> dict:
+def run_main_path(with_result: bool = False):
+    """``run_audio`` (ast_finetune, full width, 1 frozen + 1 unfrozen epoch)
+    on a synthetic subject -> the launches of K1-K3 in it (and the task's
+    result with ``with_result``)."""
     import dataclasses
     import tempfile
 
@@ -495,7 +498,7 @@ def run_main_path() -> dict:
         raise AssertionError(f"bad loss history {hist['loss']}")
     if set(m) != METRICS_KEYS:
         raise AssertionError(f"metrics keys {sorted(m)} != {sorted(METRICS_KEYS)}")
-    return launches
+    return (launches, res) if with_result else launches
 
 
 # -----------------------------------------------------------------------------
@@ -505,14 +508,20 @@ def run_main_path() -> dict:
 
 def step_inputs(preset, lead=()):
     """Random (x, y) of a preset's train batch as its path feeds it, with
-    ``lead`` axes in front (a subject stack): AST (8, 1024, 128) fbanks, ViT
-    (128, 56, 56, 3) uint8 frames, EEGNet and the conformer (32, 30, 500)
-    trials."""
+    ``lead`` axes in front (a subject stack): AST (8, 1024, 128) fbanks, the
+    SCNN (64, 180) features, ViT (128, 56, 56, 3) uint8 frames, ResNetAttn
+    (32, 224, 224, 3) normalized frames, EEGNet and the conformer (32, 30,
+    500) trials."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     bs = (*lead, preset.finetune.batch_size)
-    if preset.audio is not None:
+    if preset.finetune.model == "scnn_audio":
+        x = torch.randn(*bs, 180, generator=gen, device="cuda")
+    elif preset.finetune.model == "resnet_attn":
+        side = preset.vision.image_size
+        x = torch.randn(*bs, side, side, 3, generator=gen, device="cuda")
+    elif preset.audio is not None:
         x = torch.randn(*bs, 1024, 128, generator=gen, device="cuda")
     elif preset.vision is not None:
         side = preset.vision.face_image_size
@@ -1293,6 +1302,393 @@ def run_fusion_phase(card: str, pipes) -> None:
         f"{time.perf_counter() - t0:.1f} s; accuracies {accs}; fused (120, 5) logits finite; "
         f"on {card}")
 
+# -----------------------------------------------------------------------------
+# 17. checkpoint import on the main path
+# -----------------------------------------------------------------------------
+
+CKPT_TOL = (1e-6, 1e-6)  # the same weights on the same card: equal up to summation order
+
+
+def write_hf_checkpoints(root: str, name: str, sd: dict, formats=("safetensors", "bin")) -> dict:
+    """An HF-named state dict written as ``model.safetensors`` and as
+    ``pytorch_model.bin``, a directory each under ``root`` -> {format: directory}."""
+    import torch
+
+    from eav_tpu_torch.models import hf_import as H
+
+    dirs = {}
+    for fmt in formats:
+        d = os.path.join(root, f"{name}-{fmt}")
+        os.makedirs(d)
+        if fmt == "bin":
+            torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+        else:
+            H.write_safetensors(os.path.join(d, "model.safetensors"), sd)
+        dirs[fmt] = d
+    return dirs
+
+
+def imported_features(kind: str, ckpt_dir: str, model, x):
+    """``_pretrained_params`` of ``kind`` with its variable pointed at
+    ``ckpt_dir``, loaded strictly into ``model`` (on the card) -> its float32
+    backbone features of ``x``."""
+    import torch
+
+    from eav_tpu_torch.train.pipeline import CKPT_ENV, _pretrained_params
+
+    os.environ[CKPT_ENV[kind]] = ckpt_dir
+    try:
+        sd = _pretrained_params(kind, 5)
+    finally:
+        del os.environ[CKPT_ENV[kind]]
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        return model.eval()(x, mode="features")
+
+
+def check_checkpoint_import(card: str, root: str) -> str:
+    """Seeded AST-base and ViT-base written under HF names in both formats:
+    the imported models' float32 backbone features equal the source
+    weights' on the card; q and k swapped in layer 0 of the written
+    checkpoint must fail that check. Returns the AST safetensors directory."""
+    import copy
+
+    import torch
+
+    from eav_tpu_torch.models import hf_import as H
+    from eav_tpu_torch.models.ast import AST
+    from eav_tpu_torch.models.vit import ViT
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    inputs = {"ast": torch.randn(2, 1024, 128, generator=gen, device="cuda"),
+              "vit": torch.randn(2, 224, 224, 3, generator=gen, device="cuda")}
+    out = []
+    for kind, cls in (("ast", AST), ("vit", ViT)):
+        t0 = time.perf_counter()
+        src = cls(generator=torch.Generator().manual_seed(7)).to("cuda").eval()
+        with torch.no_grad():
+            want = src(inputs[kind], mode="features")
+        target = copy.deepcopy(src)
+        with torch.no_grad():  # nothing of the source survives but what the import loads
+            for p in target.parameters():
+                p.zero_()
+        sd = H.to_hf_state_dict({k: v.cpu() for k, v in src.state_dict().items()}, kind)
+        dirs = write_hf_checkpoints(root, kind, sd)
+        errs = {fmt: max_err(imported_features(kind, d, target, inputs[kind]), want, *CKPT_TOL)
+                for fmt, d in dirs.items()}
+        attn = ("audio_spectrogram_transformer" if kind == "ast" else "vit") + \
+            ".encoder.layer.0.attention.attention"
+        q, k = f"{attn}.query.weight", f"{attn}.key.weight"
+        bad = write_hf_checkpoints(root, f"{kind}-qk", {**sd, q: sd[k], k: sd[q]},
+                                   ("safetensors",))["safetensors"]
+        must_reject(imported_features(kind, bad, target, inputs[kind]), want, *CKPT_TOL,
+                    f"{kind} checkpoint with q and k swapped in layer 0")
+        out.append(f"{kind}-base {errs} ({time.perf_counter() - t0:.1f} s with the writes)")
+        if kind == "ast":
+            ast_dir = dirs["safetensors"]
+        del src, target
+    log("checkpoint import, seeded weights under HF names, float32 backbone features "
+        f"against the source weights' on the card (atol, rtol {CKPT_TOL}): "
+        + "; ".join(out) + f"; q and k swapped in layer 0 fails for both, on {card}")
+    return ast_dir
+
+
+def run_audio_from_checkpoint(card: str, ckpt_dir: str) -> dict:
+    """``run_audio`` (ast_finetune, AST-base bf16, 1 frozen + 1 unfrozen
+    epoch) with ``EAV_TPU_AST_CKPT`` at ``ckpt_dir``: the kernels' launches
+    of the run, and the trained backbone within Adam's bound of the
+    checkpoint (4 unfrozen steps at 5e-6 move an entry by about 2e-5; the
+    seeded init of another seed lies ~0.02 away)."""
+    from eav_tpu_torch.models import hf_import as H
+
+    os.environ["EAV_TPU_AST_CKPT"] = ckpt_dir
+    try:
+        launches, res = run_main_path(with_result=True)
+    finally:
+        del os.environ["EAV_TPU_AST_CKPT"]
+    ckpt = H.convert_ast_state_dict(H.load_state_dict_from_dir(ckpt_dir))
+    params = res.artifacts["params"]
+    drift = max(float((params[k] - v).abs().max()) for k, v in ckpt.items()
+                if not k.startswith("classifier"))
+    log(f"run_audio from the checkpoint: losses {res.artifacts['history']['loss'].tolist()}, "
+        f"backbone max |trained - checkpoint| {drift:.3g} (bound 1e-4); launches {launches} "
+        f"on {card}")
+    if not drift <= 1e-4:
+        raise AssertionError(f"the fit did not start from the checkpoint: {drift}")
+    return launches
+
+
+# -----------------------------------------------------------------------------
+# 18. scnn_audio: the 180-d frontend and the SCNN
+# -----------------------------------------------------------------------------
+
+SCNN_TOL = 2e-4  # float32 on the card against float64 on the CPU, of a block's scale
+
+
+def scnn_segments(n: int = 400, sr: int = 22050, seed: int = 18):
+    """A subject's ``n`` 5 s segments at 22.05 kHz, made on the card: a
+    harmonic tone (f0 100-400 Hz, random phases) under a slow envelope, plus
+    noise; float32."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = torch.arange(5 * sr, device="cuda", dtype=torch.float64) / sr
+    f0 = torch.as_tensor(rng.uniform(100, 400, (n, 1)), device="cuda")
+    rate = torch.as_tensor(rng.uniform(0.5, 3, (n, 1)), device="cuda")
+    phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, (n, 4)), device="cuda")
+    tone = sum(torch.sin(2 * np.pi * f0 * k * t + phase[:, k - 1 : k]) / k for k in range(1, 5))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn(n, t.numel(), generator=gen, device="cuda", dtype=torch.float64)
+    return (0.2 * (0.6 + 0.4 * torch.sin(2 * np.pi * rate * t)) * tone + 0.05 * noise).float()
+
+
+def check_scnn_frontend(card: str) -> None:
+    """``scnn_frontend`` on the card (float32, batch 64) against
+    ``scnn180_features`` in float64 on the CPU over a subject's 400 segments:
+    the tuning indices equal, each block within ``SCNN_TOL`` of its scale;
+    timed (median of 3). A detuned tone recovers its tuning, and a chroma
+    pinned to tuning 0 must fail against the estimated one."""
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.ingest.audio import scnn_frontend
+    from eav_tpu_torch.ops import spectral as S
+
+    cfg = get_preset("scnn_audio").audio
+    segs = scnn_segments()
+    host = segs.cpu().numpy()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        feats = scnn_frontend(host, cfg, device="cuda")
+        times.append(time.perf_counter() - t0)
+    idx_card = torch.cat([S.estimate_tuning_power(S.stft_mag_sq(segs[i : i + 64]), cfg.scnn_sr,
+                                                  cfg.n_fft) for i in range(0, 400, 64)]).cpu()
+    t0 = time.perf_counter()
+    ref, idx_cpu = [], []
+    for i in range(0, 400, 64):
+        x = torch.from_numpy(host[i : i + 64]).double()
+        ref.append(S.scnn180_features(x, cfg.scnn_sr).numpy())
+        idx_cpu.append(S.estimate_tuning_power(S.stft_mag_sq(x), cfg.scnn_sr, cfg.n_fft))
+    cpu_s = time.perf_counter() - t0
+    ref, idx_cpu = np.concatenate(ref), torch.cat(idx_cpu)
+    moved = torch.nonzero(idx_card != idx_cpu).flatten().tolist()
+    if moved:
+        raise AssertionError(f"tuning indices differ on segments {moved}")
+    errs = {}
+    for name, (a, b) in {"mfcc": (0, 40), "chroma": (40, 52), "mel": (52, 180)}.items():
+        scale = float(np.abs(ref[:, a:b]).max())
+        errs[name] = float(np.abs(feats[:, a:b] - ref[:, a:b]).max()) / scale
+        if not errs[name] <= SCNN_TOL:
+            raise AssertionError(f"{name} block {errs[name]:.3g} of its scale from float64")
+    # a detuned harmonic A: its tuning, and the planted fault (tuning pinned to 0)
+    t = torch.arange(cfg.scnn_sr, device="cuda", dtype=torch.float64) / cfg.scnn_sr
+    detune = 0.3
+    tone = sum(torch.sin(2 * np.pi * 220 * 2 ** (detune / 12) * k * t) / k for k in range(1, 6))
+    idx = int(S.estimate_tuning_power(S.stft_mag_sq(tone.float()), cfg.scnn_sr, cfg.n_fft))
+    if not abs(-0.5 + idx * 0.01 - detune) <= 0.11:
+        raise AssertionError(f"detuned tone: tuning {-0.5 + idx * 0.01} for {detune}")
+    est64 = S.chroma_stft(tone.cpu(), cfg.scnn_sr)
+    max_err(S.chroma_stft(tone.float(), cfg.scnn_sr).cpu(), est64, 1e-4, 1e-4)
+    must_reject(S.chroma_stft(tone.float(), cfg.scnn_sr, tuning=0.0).cpu(), est64, 1e-4, 1e-4,
+                "chroma with the tuning pinned to 0 on a tone detuned by 0.3 bins")
+    log(f"scnn180 frontend (400 segments of 5 s at 22.05 kHz, float32, batch 64): "
+        f"{statistics.median(times) * 1e3:.1f} ms a subject on {card} (median of 3, host "
+        f"arrays in and out), float64 CPU reference {cpu_s:.1f} s; tuning indices equal on "
+        f"all 400 ({len(set(idx_cpu.tolist()))} distinct); max abs err of each block's "
+        f"scale {errs} (tol {SCNN_TOL}); a tone detuned by {detune} reads "
+        f"{-0.5 + idx * 0.01:.2f}, the chroma pinned to tuning 0 fails")
+
+
+def run_scnn_path(card: str) -> None:
+    """``run_audio(1, "scnn180")`` with the ``scnn_audio`` preset (2 of its 100
+    epochs) on the synthetic audio subject of phase 5."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.train.pipeline import ModalityPipelines
+
+    base = get_preset("scnn_audio")
+    preset = base.replace(
+        split=dataclasses.replace(base.split, h_idx=6),  # 8 segments a class: 30 train, 10 test
+        finetune=dataclasses.replace(base.finetune, phases=(
+            dataclasses.replace(base.finetune.phases[0], epochs=2),)))
+    with tempfile.TemporaryDirectory() as root:
+        write_subject(root)
+        pipes = ModalityPipelines(root, logits_dir=os.path.join(root, "logits"),
+                                  presets={"audio_scnn": preset}, device="cuda")
+        t0 = time.perf_counter()
+        res = pipes.run_audio(1, "scnn180")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        test_arch = np.load(os.path.join(root, "logits", "s01_audio_scnn_test.npy"))
+    hist, m = res.artifacts["history"], res.metrics
+    log(f"run_audio(1, 'scnn180') (scnn_audio, float32, 2 epochs, 30 train / 10 test "
+        f"segments): {wall:.1f} s; losses {hist['loss'].tolist()}, accuracy {m['accuracy']}, "
+        f"load {m['load_seconds']} s (44.1 kHz wavs -> 22.05 kHz -> 180-d), fit "
+        f"{m['fit_seconds']} s on {card}")
+    if not (np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2):
+        raise AssertionError(f"bad loss history {hist['loss']}")
+    if set(m) != METRICS_KEYS or test_arch.shape != (10, 5):
+        raise AssertionError(f"metrics keys {sorted(m)}, test archive {test_arch.shape}")
+
+
+# -----------------------------------------------------------------------------
+# 19. resnet_vision: ResNetAttn on the card
+# -----------------------------------------------------------------------------
+
+RESNET_TOL = 1e-4  # float32 (TF32 off), cuDNN against the CPU, of the logits' scale
+
+
+def check_resnet_forward(card: str) -> None:
+    """ResNetAttn's float32 eval forward at 224 x 224, batch 2, on the card
+    against the CPU; the same with a sigmoid on the attention (the planted
+    fault, what the reference does not do) must fail."""
+    import torch
+
+    from eav_tpu_torch.models.resnet_attn import ResNetAttn
+
+    class SigmoidAttn(ResNetAttn):
+        def attention(self, feats):
+            return torch.sigmoid(super().attention(feats))
+
+    x = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(19))
+    model = ResNetAttn(generator=torch.Generator().manual_seed(19)).eval()
+    fault = SigmoidAttn(generator=torch.Generator().manual_seed(19)).eval()
+    with torch.no_grad():
+        want, bad = model(x), fault(x)
+        got = model.to("cuda")(x.to("cuda")).cpu()
+    scale = float(want.abs().max())
+    err = max_err(got, want, RESNET_TOL * scale, 0.0)
+    must_reject(got, bad, RESNET_TOL * scale, 0.0, "a sigmoid on the channel attention")
+    log(f"ResNetAttn float32 forward, 224 x 224, batch 2, card vs CPU: max abs err {err:.3g} "
+        f"of logits up to {scale:.3g} (atol {RESNET_TOL} of the scale); a sigmoid on the "
+        f"attention fails")
+
+
+def check_resnet_import(card: str, root: str) -> str:
+    """A seeded backbone saved in torchvision's layout -> ``EAV_TPU_RESNET_CKPT``
+    -> ``_pretrained_params``: the imported backbone's features equal the
+    source's on the card. Returns the checkpoint's path."""
+    import torch
+
+    from eav_tpu_torch.models.resnet_attn import ResNetAttn
+    from eav_tpu_torch.train.pipeline import _pretrained_params
+
+    src = ResNetAttn(generator=torch.Generator().manual_seed(3)).backbone
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():  # running stats off their init, so that their import shows
+        for m in src.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    path = os.path.join(root, "resnet50-seeded.pth")
+    torch.save(src.state_dict(), path)
+    os.environ["EAV_TPU_RESNET_CKPT"] = path
+    try:
+        sd = _pretrained_params("resnet_attn", 5)
+    finally:
+        del os.environ["EAV_TPU_RESNET_CKPT"]
+    model = ResNetAttn()
+    model.load_state_dict(sd, strict=False)
+    x = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(6)).to("cuda")
+    with torch.no_grad():
+        got = model.backbone.to("cuda").eval()(x)
+        want = src.to("cuda").eval()(x)
+    err = max_err(got, want, *CKPT_TOL)
+    log(f"torchvision-layout import of a seeded ResNet50 backbone ({len(sd)} tensors): "
+        f"features max abs err {err:.3g} against the source on {card}")
+    return path
+
+
+def check_backbone_moved(trained: dict, src: dict, lr: float, steps: int):
+    """The unfrozen phase's movement of the backbone's weights from the
+    checkpoint: Adam moves an entry by about lr a step at most (x 1.25: a
+    bias-corrected step can exceed lr a little), so the largest is within
+    ``steps`` lr and the fit started from the checkpoint; and the median
+    entry moved by at least one step's lr, so the backbone trained. Returns
+    (max, median)."""
+    import torch
+
+    moved = torch.cat([(trained[k] - v).abs().flatten() for k, v in src.items()
+                       if not k.endswith(("running_mean", "running_var",
+                                          "num_batches_tracked"))])
+    top, median = float(moved.max()), float(moved.median())
+    if not top <= 1.25 * steps * lr:
+        raise AssertionError(f"the backbone moved {top} from the checkpoint in {steps} steps "
+                             f"at lr {lr}")
+    if not median >= lr:
+        raise AssertionError(f"the backbone did not train: median movement {median}")
+    return top, median
+
+
+def run_resnet_path(card: str, ckpt: str) -> None:
+    """``run_vision(1, "vision_resnet")`` (1 frozen + 1 unfrozen epoch of its
+    3 + 3) from the seeded backbone checkpoint, on a synthetic frame cache of
+    40 trials x 25 uint8 56 x 56 crops resized to 224 on the card. The
+    frozen epoch leaves the backbone's weights and the unfrozen one moves
+    them from the checkpoint (``check_backbone_moved``)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.train.pipeline import ModalityPipelines
+
+    base = get_preset("resnet_vision")
+    preset = base.replace(
+        split=dataclasses.replace(base.split, h_idx=6),  # 8 trials a class: 30 train, 10 test
+        finetune=dataclasses.replace(base.finetune, phases=tuple(
+            dataclasses.replace(p, epochs=1) for p in base.finetune.phases)))
+    with tempfile.TemporaryDirectory() as root:
+        cache, logits = os.path.join(root, "cache"), os.path.join(root, "logits")
+        os.makedirs(cache)
+        write_frame_cache(cache, preset)
+        pipes = ModalityPipelines(os.path.join(root, "EAV"), cache_dir=cache, logits_dir=logits,
+                                  presets={"vision_resnet": preset}, device="cuda")
+        os.environ["EAV_TPU_RESNET_CKPT"] = ckpt
+        try:
+            t0 = time.perf_counter()
+            res = pipes.run_vision(1, "vision_resnet")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ["EAV_TPU_RESNET_CKPT"]
+        test_arch = np.load(os.path.join(logits, "s01_vision_resnet_test.npy"))
+    src = torch.load(ckpt, weights_only=True)
+    phase = preset.finetune.phases[1]
+    steps = -(-750 // preset.finetune.batch_size)
+    trained = {k: res.artifacts["params"]["backbone." + k] for k in src}
+    drift, median = check_backbone_moved(trained, src, phase.lr, steps)
+    for what, fault in (("a backbone that stayed at the checkpoint", src),
+                        ("a backbone that moved at twice the lr", {
+                            k: src[k] + 2 * (trained[k] - src[k]) for k in src})):
+        try:
+            check_backbone_moved(fault, src, phase.lr, steps)
+        except AssertionError:
+            continue
+        raise AssertionError(f"the check passed a planted fault: {what}")
+    hist, m = res.artifacts["history"], res.metrics
+    log(f"run_vision(1, 'vision_resnet') (ResNet50 + attention, float32, 1 frozen + 1 "
+        f"unfrozen epoch, 750 train / 250 test frames of 30 / 10 trials at 224): {wall:.1f} s; "
+        f"losses {hist['loss'].tolist()}, trial accuracy {m['accuracy']}, fit "
+        f"{m['fit_seconds']} s, {m['samples_per_sec']} frames/s, load {m['load_seconds']} s; "
+        f"backbone |trained - checkpoint| max {drift:.3g}, median {median:.3g} over {steps} "
+        f"unfrozen steps at lr {phase.lr} (bounds: max <= {steps} lr x 1.25, median >= lr); "
+        f"a backbone left at the checkpoint or moved at twice the lr fails, on {card}")
+    if not (np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2):
+        raise AssertionError(f"bad loss history {hist['loss']}")
+    if set(m) != METRICS_KEYS or test_arch.shape != (10, 5):
+        raise AssertionError(f"metrics keys {sorted(m)}, test archive {test_arch.shape}")
+
 
 def main() -> int:
     import tempfile
@@ -1393,6 +1789,22 @@ def main() -> int:
     run_fusion_phase(card, eeg_pipelines(eeg_root.name, "stacked"))
     mark("16. fusion")
     eeg_root.cleanup()
+
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        ast_ckpt = check_checkpoint_import(card, ckpt_root)
+        run_audio_from_checkpoint(card, ast_ckpt)
+        mark("17. checkpoint import")
+        check_scnn_frontend(card)
+        run_scnn_path(card)
+        time_train_step(card, "scnn_audio", "SCNN (scnn_audio), bs 64, 180-d features, float32")
+        mark("18. scnn_audio")
+        check_resnet_forward(card)
+        run_resnet_path(card, check_resnet_import(card, ckpt_root))
+        time_train_step(card, "resnet_vision",
+                        "ResNet50 + attention (resnet_vision), unfrozen, bs 32, 224 x 224, "
+                        "float32, TF32 off")
+        profile_train_step(card, "resnet_vision", top=12)
+        mark("19. resnet_vision")
 
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():

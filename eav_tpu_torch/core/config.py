@@ -1,12 +1,12 @@
-"""Dataclass configs and the ``ast_finetune``, ``vit_finetune``,
-``eegnet_subject``, ``conformer_eeg`` and ``fusion_sweep`` presets.
+"""Dataclass configs and the presets of the JAX package: ``eegnet_subject``,
+``scnn_audio``, ``ast_finetune``, ``vit_finetune``, ``fusion_sweep``,
+``conformer_eeg`` and ``resnet_vision``.
 
-A copy of the parts of ``eav_tpu/core/config.py`` that the audio, vision,
-EEG and fusion fine-tunes need: the same field names and defaults, without the
-fields of model families the port does not run yet. ``EEGPreprocConfig`` and
+A copy of ``eav_tpu/core/config.py``'s dataclasses and presets, with the same
+field names and defaults. ``EEGPreprocConfig``, ``AudioPreprocConfig`` and
 ``VisionPreprocConfig`` are copied whole, so their hashes (the cache keys)
 equal the JAX package's. ``model_kwargs`` maps the presets' dtype names to
-torch dtypes.
+torch dtypes. The ``--set`` / ``--config`` overrides are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,15 +77,37 @@ class EEGPreprocConfig:
 
 @dataclass(frozen=True)
 class AudioPreprocConfig:
-    """Audio ingest: .wav -> 5 s / 16 kHz segments -> AST fbank (128 mel
-    bins x 1024 frames, normalized by the AudioSet corpus statistics)."""
+    """Audio ingest: .wav -> 5 s / 16 kHz segments, then one of two frontends.
+
+    - ``frontend='fbank'``: AST 128-bin x 1024-frame Kaldi-style log-mel fbank
+      normalized by the AudioSet corpus stats (reference
+      `Pre_trained_models/ast-finetuned-audioset/preprocessor_config.json`).
+    - ``frontend='scnn180'``: the notebook's 180-d vector (40 MFCC + 12 chroma
+      + 128 mel means over a 5 s segment at 22.05 kHz; reference
+      `CNN_tensorflow/CNN_audio_emotion_recognition.ipynb` extract_feature).
+    """
 
     target_sr: int = 16000
     segment_seconds: float = 5.0
+    frontend: str = "fbank"
+    # AST fbank (Kaldi-compatible)
     num_mel_bins: int = 128
     max_frames: int = 1024
+    frame_length_ms: float = 25.0
+    frame_shift_ms: float = 10.0
     norm_mean: float = -4.2677393
     norm_std: float = 4.5689974
+    # SCNN 180-d frontend (librosa conventions)
+    scnn_sr: int = 22050
+    n_mfcc: int = 40
+    n_chroma: int = 12
+    n_mels: int = 128
+    n_fft: int = 2048
+    hop_length: int = 512
+
+    @property
+    def segment_samples(self) -> int:
+        return int(round(self.segment_seconds * self.target_sr))
 
 
 @dataclass(frozen=True)
@@ -132,7 +154,13 @@ class FinetuneConfig:
     leaves the module after its first ``validate()`` (`EEGNet_tor.py:96-135`).
     ``shuffle=False`` batches in order every epoch (the trajectory parity
     tests use it); ``cache_frozen_features`` runs a frozen phase on cached
-    backbone features when that is the same math (train/loop.py)."""
+    backbone features when that is the same math (train/loop.py).
+    ``compat_batch_mean_acc`` logs the mean of per-batch accuracies, the
+    reference vision trainers' metric (`Transformer_Vision.py:106-124`,
+    `CNN_Vision.py:128-157`), where a partial last batch weighs as a whole
+    one; ``l1_reg`` / ``l2_reg`` add the Keras SCNN's l1_l2 penalties on
+    every kernel (train/loop.py ``kernel_penalty``). No preset sets these
+    three."""
 
     model: str
     batch_size: int
@@ -153,6 +181,9 @@ class FinetuneConfig:
     # keep every epoch's test logits (the reference's ActivationSaver,
     # `CNN_audio.py:48-72`): ``TrainResult.epoch_logits``
     keep_epoch_logits: bool = False
+    compat_batch_mean_acc: bool = False
+    l1_reg: float = 0.0
+    l2_reg: float = 0.0
     cache_frozen_features: bool = True
     model_kwargs: Dict[str, Any] = field(default_factory=dict)
 
@@ -189,6 +220,17 @@ class PresetConfig:
 
     def replace(self, **kw) -> "PresetConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _scnn_finetune() -> FinetuneConfig:
+    # Reference `CNN_torch/CNN_audio.py:89` (Adam 1e-3) / notebook (100 ep, bs 64).
+    return FinetuneConfig(
+        model="scnn_audio",
+        batch_size=64,
+        optimizer="adam",
+        weight_decay=0.0,
+        phases=(PhaseConfig(epochs=100, lr=1e-3, freeze=False),),
+    )
 
 
 def _ast_finetune() -> FinetuneConfig:
@@ -291,13 +333,23 @@ PRESETS: Dict[str, PresetConfig] = {
         eeg=EEGPreprocConfig(),
         finetune=_eegnet_finetune(),
     ),
+    # BASELINE.json config 2
+    "scnn_audio": PresetConfig(
+        name="scnn_audio",
+        description="Audio SCNN: wav -> 180-d librosa-style features -> Conv1D",
+        split=SplitConfig(),
+        audio=AudioPreprocConfig(frontend="scnn180"),
+        finetune=_scnn_finetune(),
+    ),
+    # BASELINE.json config 3
     "ast_finetune": PresetConfig(
         name="ast_finetune",
         description="AST-audioset fine-tune per subject (freeze 10ep -> unfreeze 15ep, bs=8)",
         split=SplitConfig(),
-        audio=AudioPreprocConfig(),
+        audio=AudioPreprocConfig(frontend="fbank"),
         finetune=_ast_finetune(),
     ),
+    # BASELINE.json config 4
     "vit_finetune": PresetConfig(
         name="vit_finetune",
         description="Vision ViT fine-tune on face frames, per-trial mean-logit vote",
@@ -322,6 +374,24 @@ PRESETS: Dict[str, PresetConfig] = {
         split=SplitConfig(),
         eeg=EEGPreprocConfig(),
         finetune=_conformer_finetune(),
+    ),
+    "resnet_vision": PresetConfig(
+        name="resnet_vision",
+        description="ResNet50+channel-attention video baseline (CNN_Vision.py), "
+        "3+3 epoch freeze protocol, mean-logit trial vote",
+        split=SplitConfig(),
+        vision=VisionPreprocConfig(face_detection=True),
+        finetune=FinetuneConfig(
+            model="resnet_attn",
+            batch_size=32,
+            optimizer="adamw",
+            weight_decay=0.01,  # torch AdamW default (`CNN_Vision.py:86`)
+            phases=(
+                PhaseConfig(epochs=3, lr=5e-4, freeze=True),
+                PhaseConfig(epochs=3, lr=5e-6, freeze=False),
+            ),
+            vote_group=25,
+        ),
     ),
 }
 

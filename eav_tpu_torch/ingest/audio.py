@@ -1,18 +1,19 @@
-"""Audio ingest: .wav -> 5 s segments + labels, and the batched AST frontend.
+"""Audio ingest: .wav -> 5 s segments + labels, and the batched frontends (the
+AST fbank and the SCNN's 180-d feature).
 
 Behaviour of the reference ``DataLoadAudio`` (`Dataload_audio.py:10-78`), as
 ``eav_tpu/ingest/audio.py`` implements it: per subject, list the Audio dir,
 parse the emotion from filename token 4, decode, resample to the target rate,
 cut 5 s segments (4 per 20 s file), map labels {Neutral:0, Sadness:1, Anger:2,
 Happiness:3, Calmness:4}. Decoding is the pure-Python RIFF reader;
-resampling and the fbank run on the loader's device.
+resampling and the frontends run on the loader's device.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +22,7 @@ from eav_tpu_torch.core.config import EMOTION_TO_INDEX, AudioPreprocConfig
 from eav_tpu_torch.core.device import resolve_device
 from eav_tpu_torch.ingest.wav import read_wav
 from eav_tpu_torch.ops.signal import resample_poly
-from eav_tpu_torch.ops.spectral import ast_features
+from eav_tpu_torch.ops.spectral import ast_features, scnn180_features
 
 
 def emotion_from_filename(name: str) -> str:
@@ -73,8 +74,10 @@ class DataLoadAudio:
             for w in waves
         ]
 
-    def process(self) -> Tuple[np.ndarray, np.ndarray]:
-        target_sr = self.cfg.target_sr
+    def process(self, target_sr: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Segments at ``target_sr`` (default the config's ``target_sr``;
+        the SCNN frontend takes ``scnn_sr``)."""
+        target_sr = target_sr or self.cfg.target_sr
         files, emotions = self.data_files()
         pairs = [read_wav(f) for f in files]
         waves = [w[0] for w, _ in pairs]
@@ -121,4 +124,23 @@ def ast_frontend(
                 sampling_rate=cfg.target_sr,
             ).cpu().numpy()
         )
+    return np.concatenate(outs, axis=0)
+
+
+def scnn_frontend(
+    segments: np.ndarray,
+    cfg: AudioPreprocConfig = AudioPreprocConfig(),
+    device="cuda",
+    batch: int = 64,
+) -> np.ndarray:
+    """(N, T) segments at ``cfg.scnn_sr`` -> (N, 180) float32 notebook
+    features (`CNN_audio_emotion_recognition.ipynb` extract_feature),
+    ``batch`` segments at a time on ``device``. As in the JAX package, only
+    ``scnn_sr`` is read from ``cfg``: the feature's widths are the
+    notebook's."""
+    dev = resolve_device(device)
+    outs = []
+    for i in range(0, len(segments), batch):
+        x = torch.as_tensor(np.asarray(segments[i : i + batch], np.float32), device=dev)
+        outs.append(scnn180_features(x, sr=cfg.scnn_sr).cpu().numpy())
     return np.concatenate(outs, axis=0)

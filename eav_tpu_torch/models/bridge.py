@@ -1,5 +1,5 @@
-"""Weights across: the JAX package's Flax AST, ViT, EEGNet, EEG conformer
-and fusion-head parameters -> the port's state_dicts.
+"""Weights across: the JAX package's Flax AST, ViT, EEGNet, EEG conformer,
+fusion-head, SCNN and ResNetAttn parameters -> the port's state_dicts.
 
 The port keeps the Flax names, so the mapping is mechanical:
 
@@ -7,12 +7,14 @@ The port keeps the Flax names, so the mapping is mechanical:
 - the fused qkv kernel (in, 3, hidden) becomes weight (3*hidden, in), rows
   ordered q, k, v, and its bias (3, hidden) becomes (3*hidden,);
 - a conv kernel goes from HWIO to OIHW, a grouped one too (EEGNet's
-  depthwise (C, 1, 1, 64) becomes (64, 1, C, 1));
+  depthwise (C, 1, 1, 64) becomes (64, 1, C, 1)), a 1-D one from WIO to OIW;
 - LayerNorm and BatchNorm ``scale``/``bias`` become ``weight``/``bias``, and
   BatchNorm's ``batch_stats`` ``mean``/``var`` its running stats;
-- the EEG heads read a flattened feature map: Flax flattens NHWC (position
-  major), the port NCHW (feature major), so their input columns are
-  permuted.
+- the EEG and SCNN heads read a flattened feature map: Flax flattens NHWC
+  or NWC (position major), the port NCHW or NCW (feature major), so their
+  input columns are permuted;
+- ResNetAttn's Flax block ``layer{s}_{b}`` is torchvision's ``layer{s}.{b}``,
+  its ``down_conv`` / ``down_bn`` are ``downsample.0`` / ``.1``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def _norm(sd: dict, prefix: str, tree: Mapping[str, Any]) -> None:
 
 
 def _conv(sd: dict, prefix: str, tree: Mapping[str, Any]) -> None:
-    sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+    k = np.asarray(tree["kernel"])  # spatial dims, then in, out
+    sd[f"{prefix}.weight"] = _t(k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))
 
 
 def _batch_norm(sd: dict, prefix: str, params: Mapping[str, Any],
@@ -145,3 +148,38 @@ def fusion_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         _dense(sd, "head", params["head"])
         return sd
     return {name: _t(params[name]) for name in ("log_temp", "weight", "bias")}
+
+
+def scnn_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax SCNNAudio params -> a state_dict that ``SCNNAudio.load_state_dict``
+    takes strictly (the head's rows go from w * 128 + c to c * 22 + w)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("conv1", "conv2", "conv3", "conv4"):
+        _conv(sd, name, params[name])
+        sd[f"{name}.bias"] = _t(params[name]["bias"])
+    sd["head.weight"] = _head_nchw(params["head"]["kernel"], 128)
+    sd["head.bias"] = _t(params["head"]["bias"])
+    return sd
+
+
+def resnet_attn_params_from_jax(params: Mapping[str, Any],
+                                batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ResNetAttn ``params`` and ``batch_stats`` -> a state_dict that
+    ``ResNetAttn.load_state_dict`` takes strictly."""
+    sd: Dict[str, torch.Tensor] = {}
+    bp, bs = params["backbone"], batch_stats["backbone"]
+    _conv(sd, "backbone.conv1", bp["conv1"])
+    _batch_norm(sd, "backbone.bn1", bp["bn1"], bs["bn1"])
+    for name, block in bp.items():
+        if not name.startswith("layer"):
+            continue
+        pre = "backbone." + name.replace("_", ".")
+        for i in (1, 2, 3):
+            _conv(sd, f"{pre}.conv{i}", block[f"conv{i}"])
+            _batch_norm(sd, f"{pre}.bn{i}", block[f"bn{i}"], bs[name][f"bn{i}"])
+        if "down_conv" in block:
+            _conv(sd, f"{pre}.downsample.0", block["down_conv"])
+            _batch_norm(sd, f"{pre}.downsample.1", block["down_bn"], bs[name]["down_bn"])
+    for name in ("attn_fc1", "attn_fc2", "cls_fc1", "cls_fc2"):
+        _dense(sd, name, params[name])
+    return sd

@@ -59,19 +59,16 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: Optional[torch.dtype]) 
     return y.to(dtype or torch.float32)
 
 
-class PatchProj(nn.Module):
+class PatchProj(nn.Conv2d):
     """Patch embedding: a VALID strided conv in float32 (the JAX module sets
     no dtype). Weight OIHW (hidden, C, P, P) is the Flax HWIO kernel
     transposed. NCHW in, (B, hidden, rows, cols) out."""
 
     def __init__(self, in_channels: int, hidden: int, patch_size: int, strides):
-        super().__init__()
-        self.strides = tuple(strides)
-        self.weight = nn.Parameter(torch.empty(hidden, in_channels, patch_size, patch_size))
-        self.bias = nn.Parameter(torch.empty(hidden))
+        super().__init__(in_channels, hidden, patch_size, stride=tuple(strides))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.float(), self.weight, self.bias, stride=self.strides)
+        return F.conv2d(x.float(), self.weight, self.bias, stride=self.stride)
 
 
 def resolve_attn_impl(impl: str, x: torch.Tensor) -> str:

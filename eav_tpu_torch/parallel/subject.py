@@ -90,10 +90,15 @@ class Stack:
 class SubjectParallelTrainer:
     """Stacked fits of ``model`` (any model ``Trainer`` takes) under one
     ``FinetuneConfig``, on ``device`` (``"cuda"`` unless the caller passes
-    another); ``deterministic`` as for ``Trainer``."""
+    another); ``deterministic`` as for ``Trainer``. The trainer flags
+    ``l1_reg``, ``l2_reg`` and ``compat_batch_mean_acc`` (no preset sets
+    them) are serial only and raise here."""
 
     def __init__(self, model: nn.Module, cfg: FinetuneConfig, head_regex: str = HEAD_REGEX,
                  device="cuda", deterministic: bool = False):
+        if cfg.l1_reg or cfg.l2_reg or cfg.compat_batch_mean_acc:
+            raise ValueError("l1_reg, l2_reg and compat_batch_mean_acc are not supported "
+                             "in stacked fits")
         self.inner = Trainer(model, cfg, head_regex, device, deterministic)
         self.model = self.inner.model  # the module functional_call runs
         set_generator(self.model, None)  # a stacked forward draws no mask itself

@@ -23,7 +23,12 @@ Protocol, as in the JAX trainer and the reference (`Transformer_Audio.py`):
   ``deterministic=True`` runs the fit under
   ``torch.use_deterministic_algorithms`` (``core/device.py``) so that it
   repeats there too;
-- ``keep_epoch_logits``: every epoch's test logits in ``epoch_logits``.
+- ``keep_epoch_logits``: every epoch's test logits in ``epoch_logits``;
+- ``l1_reg`` / ``l2_reg``: the Keras SCNN's l1_l2 penalties, added to the
+  loss over every kernel (``kernel_penalty``), frozen ones included;
+- ``compat_batch_mean_acc``: the history's accuracies as the mean of
+  per-batch accuracies (the reference vision trainers' metric), train and
+  test alike.
 
 PyTorch runs eagerly, so the JAX trainer's XLA and TPU devices (phase
 programs compiled with ``lax.scan``, chunked epochs, device placement
@@ -66,6 +71,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return F.cross_entropy(z, labels)
 
 
+def kernel_penalty(model: nn.Module, l1: float, l2: float) -> torch.Tensor:
+    """``l1 * sum |k| + l2 * sum k^2`` over the weights the JAX trainer calls
+    ``kernel`` (`eav_tpu/train/loop.py:321-329`): those of every Linear and
+    convolution (the transformers' ``PatchProj`` is one). Biases, norm
+    scales, tokens, position embeddings and free parameters (the
+    conformer's ``spatial_proj``, the fusion head's) are not kernels."""
+    kernels = [m.weight for m in model.modules()
+               if isinstance(m, (nn.Linear, nn.modules.conv._ConvNd))]
+    total = torch.zeros((), device=kernels[0].device)
+    if l1:
+        total = total + l1 * sum(k.abs().sum() for k in kernels)
+    if l2:
+        total = total + l2 * sum(k.square().sum() for k in kernels)
+    return total
+
+
 class Trainer:
     """Two-phase fine-tune runner for a model with the (B, ...) ->
     (B, num_classes) contract and a ``reset_parameters(generator)`` method;
@@ -85,13 +106,16 @@ class Trainer:
         is the same math: the model declares the split, the trainer's
         head_regex IS the model's head set (a superset would decay parameters
         the head never touches), the backbone is deterministic (no dropout),
-        and no max-norm projection touches frozen parameters."""
+        no max-norm projection touches frozen parameters, and no l1/l2
+        penalty sums over the backbone's kernels."""
         return bool(
             self.cfg.cache_frozen_features
             and getattr(self.model, "supports_head_mode", False)
             and self.head_regex == getattr(self.model, "head_mode_regex", None)
             and getattr(self.model, "dropout", 1.0) == 0.0
             and not self.maxnorm_rules
+            and not self.cfg.l1_reg
+            and not self.cfg.l2_reg
         )
 
     def _apply(self, x: torch.Tensor, mode: str) -> torch.Tensor:
@@ -133,14 +157,36 @@ class Trainer:
         """One optimizer step on one batch, in the mode (train or eval) the
         model is in, then the max-norm projection -> (loss, correct count),
         both still on the device."""
+        cfg = self.cfg
         logits = self._apply(x, mode)
-        loss = cross_entropy(logits, y, self.cfg.compat_softmax)
+        loss = cross_entropy(logits, y, cfg.compat_softmax)
+        if cfg.l1_reg or cfg.l2_reg:  # Keras l1_l2 (the audio notebook's SCNN)
+            loss = loss + kernel_penalty(self.model, cfg.l1_reg, cfg.l2_reg)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
         if self.maxnorm_rules:
             maxnorm_project(self.model, self.maxnorm_rules)
         return loss.detach(), (logits.detach().argmax(-1) == y).sum()
+
+    def _train_acc(self, correct: torch.Tensor, n: int, bs: int) -> torch.Tensor:
+        """An epoch's train accuracy from its per-batch correct counts: over
+        samples, or with ``compat_batch_mean_acc`` the mean over batches of
+        each batch's accuracy (the last, partial batch weighs as a whole)."""
+        if not self.cfg.compat_batch_mean_acc:
+            return correct.sum() / n
+        sizes = torch.full_like(correct, bs, dtype=torch.float32)
+        sizes[-1] = n - bs * (len(correct) - 1)
+        return (correct / sizes).mean()
+
+    def _test_acc(self, logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Test accuracy over samples, or with ``compat_batch_mean_acc`` the
+        mean over eval batches (``eval_batch_size``) of their accuracies."""
+        hit = (logits.argmax(-1) == y).float()
+        if not self.cfg.compat_batch_mean_acc:
+            return hit.mean()
+        bs = min(self.cfg.eval_batch_size, len(hit))
+        return torch.stack([c.mean() for c in hit.split(bs)]).mean()
 
     def fit(self, data, seed: Optional[int] = None,
             init_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainResult:
@@ -198,8 +244,8 @@ class Trainer:
                     correct.append(corr)
                 te_logits = self._batched_apply(pe, None, mode)
                 hist["loss"].append(torch.stack(losses).mean())
-                hist["train_acc"].append(torch.stack(correct).sum() / n_train)
-                hist["test_acc"].append((te_logits.argmax(-1) == te_y).float().mean())
+                hist["train_acc"].append(self._train_acc(torch.stack(correct), n_train, bs))
+                hist["test_acc"].append(self._test_acc(te_logits, te_y))
                 if cfg.keep_epoch_logits:
                     epoch_logits.append(te_logits)
         set_trainable(self.model, False)

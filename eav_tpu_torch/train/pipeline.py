@@ -1,11 +1,15 @@
 """The per-(subject, modality) tasks: ingest -> EAV split -> fine-tune ->
-metrics, as ``eav_tpu/train/pipeline.py`` runs them for the ``eegnet_subject``
-and ``conformer_eeg`` (EEG), ``ast_finetune`` (audio), ``vit_finetune``
-(vision) and ``fusion_sweep`` (late fusion of the archived logits) presets;
-``run_stacked`` fits a group of subjects of one modality as one stacked
-program (``parallel/subject.py``).
+metrics, as ``eav_tpu/train/pipeline.py`` runs them for every preset: the
+``eegnet_subject`` and ``conformer_eeg`` (EEG), ``ast_finetune`` and
+``scnn_audio`` (audio), ``vit_finetune`` and ``resnet_vision`` (vision) and
+``fusion_sweep`` (late fusion of the archived logits); ``run_stacked`` fits a
+group of subjects of one modality as one stacked program
+(``parallel/subject.py``). AST, ViT and ResNetAttn fits start from a local
+checkpoint when ``EAV_TPU_AST_CKPT`` / ``EAV_TPU_VIT_CKPT`` (HF directories)
+or ``EAV_TPU_RESNET_CKPT`` (a torchvision ``resnet50`` state-dict file) is
+set (``_pretrained_params``).
 
-Preprocessed EEG trials, fbanks and decoded frame stacks are cached as
+Preprocessed EEG trials, audio features and decoded frame stacks are cached as
 ``.npz`` per (subject, config hash) when a cache directory is given, under
 the JAX package's keys, and read back through ``fast_npz_load``; logits are
 archived per subject when a logits directory is given (the vision ones
@@ -37,23 +41,71 @@ from eav_tpu_torch.core.config import (
     model_kwargs,
 )
 from eav_tpu_torch.core.device import resolve_device
+from eav_tpu_torch.core.optim import HEAD_REGEX
 from eav_tpu_torch.core.sweep import TaskResult
 from eav_tpu_torch.ingest.split import eav_split
 from eav_tpu_torch.train.loop import Trainer, TrainResult
 
 
 def default_presets() -> Dict[str, PresetConfig]:
-    """Modality key -> preset, for the modalities the port runs so far."""
+    """The modality key -> preset map the sweep runs by default."""
     return {
         "eeg": get_preset("eegnet_subject"),
         "eeg_conformer": get_preset("conformer_eeg"),
         "audio": get_preset("ast_finetune"),
+        "audio_scnn": get_preset("scnn_audio"),
         "vision": get_preset("vit_finetune"),
+        "vision_resnet": get_preset("resnet_vision"),
         "fusion": get_preset("fusion_sweep"),
     }
 
 
-NOT_PORTED = ("audio_scnn", "vision_resnet")  # the JAX package's other modality keys
+# the variable that points each pretrainable model at its local checkpoint
+CKPT_ENV = {"ast": "EAV_TPU_AST_CKPT", "vit": "EAV_TPU_VIT_CKPT",
+            "resnet_attn": "EAV_TPU_RESNET_CKPT"}
+
+
+def _pretrained_params(model_name: str, num_labels: int = NUM_CLASSES,
+                       cache: Optional[dict] = None) -> Optional[Dict[str, torch.Tensor]]:
+    """The pretrained weights of ``model_name`` as a possibly partial state
+    dict for ``Trainer.fit(init_params=...)``, or None when its variable
+    (``CKPT_ENV``) is unset or empty:
+
+    - ``ast`` / ``vit``: an HF checkpoint directory (`Transformer_Audio.py:22-24`,
+      `Transformer_Vision.py:28-30`), every weight, the classifier swapped for
+      ``num_labels`` outputs (``models/hf_import.py``);
+    - ``resnet_attn``: a torchvision ``resnet50`` state-dict file
+      (`CNN_Vision.py:32`): the ``backbone.*`` weights and BatchNorm stats
+      only, so that the attention and the head start fresh, as the
+      reference's new layers do.
+
+    A set variable that names no checkpoint raises ``FileNotFoundError``:
+    nothing falls back to random weights (the JAX package returns None for a
+    path that does not exist). With ``cache``, the converted weights are kept
+    there per (model, labels, path), so a sweep reads a checkpoint once."""
+    env = CKPT_ENV.get(model_name)
+    path = os.environ.get(env, "") if env else ""
+    if not path:
+        return None
+    key = (model_name, num_labels, path)
+    if cache is not None and key in cache:
+        return cache[key]
+    if model_name == "resnet_attn":
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{env}={path!r} is not a file")
+        from eav_tpu_torch.models.resnet_attn import convert_torchvision_resnet50
+
+        out = convert_torchvision_resnet50(torch.load(path, map_location="cpu", weights_only=True))
+    else:
+        from eav_tpu_torch.models import hf_import
+
+        sd = hf_import.load_state_dict_from_dir(path)
+        convert = (hf_import.convert_ast_state_dict if model_name == "ast"
+                   else hf_import.convert_vit_state_dict)
+        out = convert(sd, num_labels=num_labels)
+    if cache is not None:
+        cache[key] = out
+    return out
 
 
 def _cfg_hash(cfg) -> str:
@@ -97,6 +149,10 @@ def build_model(preset: PresetConfig, **overrides):
         from eav_tpu_torch.models.conformer_eeg import ConformerEEG
 
         return ConformerEEG(**kwargs)
+    if name == "scnn_audio":
+        from eav_tpu_torch.models.scnn_audio import SCNNAudio
+
+        return SCNNAudio(**kwargs)
     if name == "ast":
         from eav_tpu_torch.models.ast import AST
 
@@ -105,11 +161,15 @@ def build_model(preset: PresetConfig, **overrides):
         from eav_tpu_torch.models.vit import ViT
 
         return ViT(**kwargs)
+    if name == "resnet_attn":
+        from eav_tpu_torch.models.resnet_attn import ResNetAttn
+
+        return ResNetAttn(**kwargs)
     if name == "fusion":
         from eav_tpu_torch.models.fusion import FusionHead
 
         return FusionHead(**kwargs)
-    raise KeyError(f"model {name!r} is not ported yet")
+    raise KeyError(f"unknown model {name!r}")
 
 
 class ModalityPipelines:
@@ -135,12 +195,16 @@ class ModalityPipelines:
         self.deterministic = deterministic
         self.presets = presets or default_presets()
         self._trainers: Dict[str, Trainer] = {}  # one per preset, reused across subjects
+        self._pretrained: dict = {}  # converted checkpoints (_pretrained_params)
 
     def _trainer(self, preset_key: str, preset: PresetConfig) -> Trainer:
+        """One trainer per preset; a model that freezes another set than the
+        head (ResNetAttn: the backbone) gives its own ``HEAD_REGEX``."""
         t = self._trainers.get(preset_key)
         if t is None:
-            t = Trainer(build_model(preset), preset.finetune, device=self.device,
-                        deterministic=self.deterministic)
+            model = build_model(preset)
+            t = Trainer(model, preset.finetune, getattr(model, "HEAD_REGEX", HEAD_REGEX),
+                        device=self.device, deterministic=self.deterministic)
             self._trainers[preset_key] = t
         return t
 
@@ -158,22 +222,30 @@ class ModalityPipelines:
 
         return _cached(self.cache_dir, f"s{subject:02d}_eeg_{_cfg_hash(cfg)}", compute)
 
-    def load_audio(self, subject: int):
-        """(fbanks (N, frames, mels), labels) of a subject's 5 s segments."""
-        cfg = self.presets["audio"].audio or AudioPreprocConfig()
+    def load_audio(self, subject: int, frontend: str = "fbank"):
+        """(features, labels) of a subject's 5 s segments: fbanks (N, frames,
+        mels) of 16 kHz segments (``frontend='fbank'``, the ``audio``
+        preset's config), or the (N, 180) SCNN features of 22.05 kHz ones
+        (``'scnn180'``, the ``audio_scnn`` preset's)."""
+        cfg = self.presets["audio" if frontend == "fbank" else "audio_scnn"].audio
+        cfg = cfg or AudioPreprocConfig()
 
         def compute():
-            from eav_tpu_torch.ingest.audio import DataLoadAudio, ast_frontend
+            from eav_tpu_torch.ingest.audio import DataLoadAudio, ast_frontend, scnn_frontend
 
-            segs, y = DataLoadAudio(subject, self.data_root, cfg, device=self.device).process()
-            return ast_frontend(segs, cfg, device=self.device), y
+            loader = DataLoadAudio(subject, self.data_root, cfg, device=self.device)
+            if frontend == "fbank":
+                segs, y = loader.process(target_sr=cfg.target_sr)
+                return ast_frontend(segs, cfg, device=self.device), y
+            segs, y = loader.process(target_sr=cfg.scnn_sr)
+            return scnn_frontend(segs, cfg, device=self.device), y
 
-        return _cached(self.cache_dir, f"s{subject:02d}_aud_fbank_{_cfg_hash(cfg)}", compute)
+        return _cached(self.cache_dir, f"s{subject:02d}_aud_{frontend}_{_cfg_hash(cfg)}", compute)
 
-    def load_vision(self, subject: int):
+    def load_vision(self, subject: int, preset_key: str = "vision"):
         """(frames (trials, frames, H, W, 3) uint8, labels) of a subject's
-        Speaking clips."""
-        cfg = self.presets["vision"].vision or VisionPreprocConfig()
+        Speaking clips, under the ``preset_key`` preset's vision config."""
+        cfg = self.presets[preset_key].vision or VisionPreprocConfig()
 
         def compute():
             from eav_tpu_torch.ingest.video import DataLoadVision
@@ -243,13 +315,15 @@ class ModalityPipelines:
         tr_x, tr_y, te_x, te_y = eav_split(x, y, h_idx=split.h_idx, num_classes=split.num_classes)
         return self._to_device(tr_x), tr_y, self._to_device(te_x), te_y
 
-    def _run(self, subject: int, key: str, data) -> Tuple[TrainResult, float, float]:
+    def _run(self, subject: int, key: str, data,
+             init_params: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Tuple[TrainResult, float, float]:
         """Fit the ``key`` preset's model on ``data`` = (tr_x, tr_y, te_x,
-        te_y) and archive its train logits -> (result, fit seconds, archive
-        seconds)."""
+        te_y) from ``init_params`` (overlaid on the seeded init) and archive
+        its train logits -> (result, fit seconds, archive seconds)."""
         trainer = self._trainer(key, self.presets[key])
         t0 = time.perf_counter()
-        result = trainer.fit(data, seed=self.seed + subject)
+        result = trainer.fit(data, seed=self.seed + subject, init_params=init_params)
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         if self.logits_dir is not None:
@@ -268,34 +342,38 @@ class ModalityPipelines:
                             fit_seconds=fit_s, n_train=len(data[0]),
                             load_seconds=load_s, archive_seconds=archive_s)
 
-    def _load_split_audio(self, subject: int):
+    def _load_split_audio(self, subject: int, key: str, frontend: str):
         """(tr_x, tr_y, te_x, te_y): features as float32 tensors on the
         device (one host-to-device copy, shared by fit and the archive
         predict), labels as arrays."""
-        split = self.presets["audio"].split
-        x, y = self.load_audio(subject)
+        split = self.presets[key].split
+        x, y = self.load_audio(subject, frontend)
         tr_x, tr_y, te_x, te_y = eav_split(x, y, h_idx=split.h_idx, num_classes=split.num_classes)
         return self._to_device(tr_x), tr_y, self._to_device(te_x), te_y
 
-    def run_audio(self, subject: int) -> TaskResult:
-        """The AST fine-tune of one subject (the ``audio`` preset)."""
-        key = "audio"
+    def run_audio(self, subject: int, frontend: str = "fbank") -> TaskResult:
+        """The audio fit of one subject: the AST fine-tune on fbanks (the
+        ``audio`` preset, the default) or the SCNN on the 180-d features
+        (``frontend='scnn180'``, the ``audio_scnn`` preset)."""
+        key = "audio" if frontend == "fbank" else "audio_scnn"
         t0 = time.perf_counter()
-        data = self._load_split_audio(subject)
+        data = self._load_split_audio(subject, key, frontend)
         load_s = time.perf_counter() - t0
-        result, fit_s, archive_s = self._run(subject, key, data)
+        init = _pretrained_params(self.presets[key].finetune.model, NUM_CLASSES, self._pretrained)
+        result, fit_s, archive_s = self._run(subject, key, data, init)
         return self._finish(subject, key, result, data[3],
                             fit_seconds=fit_s, n_train=len(data[0]),
                             load_seconds=load_s, archive_seconds=archive_s)
 
-    def _load_split_vision(self, subject: int):
+    def _load_split_vision(self, subject: int, preset_key: str):
         """(tr_f, tr_fy, te_f, te_fy, frames per trial): the split by trials,
-        flattened to frames. uint8 frames go to the device once; the host
-        preprocessing runs only for a model without ``preprocess_uint8``."""
+        flattened to frames. uint8 frames go to the device once; a model
+        without ``preprocess_uint8`` (ResNetAttn) gets them resized to its
+        ``image_size`` and normalized as float32 by ``preprocess_frames``."""
         from eav_tpu_torch.ingest.vision import flatten_trials_to_frames, preprocess_frames
 
-        preset = self.presets["vision"]
-        x, y = self.load_vision(subject)  # (trials, frames, H, W, 3) uint8
+        preset = self.presets[preset_key]
+        x, y = self.load_vision(subject, preset_key)  # (trials, frames, H, W, 3) uint8
         tr_x, tr_y, te_x, te_y = eav_split(x, y, h_idx=preset.split.h_idx,
                                            num_classes=preset.split.num_classes)
         fps = x.shape[1]
@@ -309,16 +387,19 @@ class ModalityPipelines:
         to_dev = lambda a: torch.as_tensor(a).to(self.device)  # noqa: E731
         return to_dev(tr_f), tr_fy, to_dev(te_f), te_fy, fps
 
-    def run_vision(self, subject: int) -> TaskResult:
-        """The ViT fine-tune of one subject (the ``vision`` preset), scored
-        by the per-trial vote over its frames."""
-        key = "vision"
+    def run_vision(self, subject: int, preset_key: str = "vision") -> TaskResult:
+        """The vision fine-tune of one subject, scored by the per-trial vote
+        over its frames: ViT (the ``vision`` preset, the default) or
+        ResNetAttn (``vision_resnet``)."""
+        key = preset_key
         t0 = time.perf_counter()
-        tr_f, tr_fy, te_f, te_fy, fps = self._load_split_vision(subject)
+        tr_f, tr_fy, te_f, te_fy, fps = self._load_split_vision(subject, key)
         load_s = time.perf_counter() - t0
+        init = _pretrained_params(self.presets[key].finetune.model, NUM_CLASSES, self._pretrained)
         trainer = self._trainer(key, self.presets[key])
         t0 = time.perf_counter()
-        result = trainer.fit((tr_f, tr_fy, te_f, te_fy), seed=self.seed + subject)
+        result = trainer.fit((tr_f, tr_fy, te_f, te_fy), seed=self.seed + subject,
+                             init_params=init)
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         if self.logits_dir is not None:
@@ -339,8 +420,8 @@ class ModalityPipelines:
         loaders = {
             "eeg": lambda s: self.load_eeg(s, "eeg"),
             "eeg_conformer": lambda s: self.load_eeg(s, "eeg_conformer"),
-            "audio": self.load_audio,
-            "vision": self.load_vision,
+            "audio": lambda s: self.load_audio(s, "fbank"),
+            "vision": lambda s: self.load_vision(s, "vision"),
         }
         vote_group, splits = None, []
         for s in subjects:
@@ -377,8 +458,6 @@ class ModalityPipelines:
         programs do."""
         from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
 
-        if modality in NOT_PORTED:
-            raise KeyError(f"modality {modality!r} is not ported yet")
         if modality not in ("eeg", "eeg_conformer", "audio", "vision"):
             raise KeyError(f"run_stacked does not support modality {modality!r}")
         preset = self.presets[modality]
@@ -481,11 +560,11 @@ class ModalityPipelines:
         if modality in ("eeg", "eeg_conformer"):
             return self.run_eeg(subject, modality)
         if modality == "audio":
-            return self.run_audio(subject)
-        if modality == "vision":
-            return self.run_vision(subject)
+            return self.run_audio(subject, "fbank")
+        if modality == "audio_scnn":
+            return self.run_audio(subject, "scnn180")
+        if modality in ("vision", "vision_resnet"):
+            return self.run_vision(subject, modality)
         if modality == "fusion":
             return self.run_fusion(subject)
-        if modality in NOT_PORTED:
-            raise KeyError(f"modality {modality!r} is not ported yet")
         raise KeyError(f"unknown modality {modality!r}")

@@ -1,6 +1,8 @@
 """The CUDA flash-attention kernels (K1-K3 and the one-pass K5) against their
-plain versions on the card, and a fit that repeats bit for bit on the card
-under the trainer's deterministic mode.
+plain versions on the card, a fit that repeats bit for bit on the card under
+the trainer's deterministic mode, and the fifth slice on the card: the
+scnn180 chain against float64 on the CPU, ResNetAttn's forward against the
+CPU, and an HF checkpoint round trip.
 
 These need a GPU with the CUDA toolkit (the kernels are built with nvcc at
 first use), so they carry the ``cuda`` marker and skip elsewhere. Run them on
@@ -182,3 +184,66 @@ def test_remat_recomputes_through_the_kernels(cuda, remat):
     assert launches[1][0] > launches[0][0]  # the recompute's forwards
     for n in grads[0]:
         torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 means float32: TF32 off for matmuls and cuDNN, then restored."""
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def test_scnn180_chain_on_the_card(cuda, no_tf32):
+    """The 180-d features of 16 noisy harmonic 5 s clips in float32 on the
+    card against float64 on the CPU: tuning indices equal, each block within
+    2e-4 of its scale."""
+    from eav_tpu_torch.ops import spectral as S
+
+    rng = np.random.default_rng(0)
+    t = np.arange(5 * 22050) / 22050
+    y = np.stack([sum(np.sin(2 * np.pi * f0 * k * t) / k for k in range(1, 5))
+                  + 0.1 * rng.standard_normal(t.size)
+                  for f0 in rng.uniform(100, 400, 16)]).astype(np.float32)
+    x = torch.from_numpy(y)
+    got = S.scnn180_features(x.to(cuda), 22050).cpu().numpy()
+    want = S.scnn180_features(x.double(), 22050).numpy()
+    idx = S.estimate_tuning_power(S.stft_mag_sq(x.to(cuda)), 22050, 2048).cpu()
+    idx64 = S.estimate_tuning_power(S.stft_mag_sq(x.double()), 22050, 2048)
+    assert torch.equal(idx, idx64)
+    for a, b in ((0, 40), (40, 52), (52, 180)):
+        assert np.abs(got[:, a:b] - want[:, a:b]).max() <= 2e-4 * np.abs(want[:, a:b]).max()
+
+
+def test_resnet_forward_on_the_card(cuda, no_tf32):
+    """ResNetAttn's float32 eval forward at 224 x 224, batch 2, card against
+    CPU to 1e-4 of the logits' scale."""
+    from eav_tpu_torch.models.resnet_attn import ResNetAttn
+
+    x = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(0))
+    model = ResNetAttn(generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path, monkeypatch):
+    """A seeded AST written under HF names (safetensors) and imported through
+    ``EAV_TPU_AST_CKPT`` gives the source's backbone features on the card."""
+    from eav_tpu_torch.models import hf_import as H
+    from eav_tpu_torch.models.ast import ast_tiny
+    from eav_tpu_torch.train.pipeline import _pretrained_params
+
+    src = ast_tiny(generator=torch.Generator().manual_seed(4)).to(cuda).eval()
+    H.write_safetensors(str(tmp_path / "model.safetensors"),
+                        H.to_hf_state_dict({k: v.cpu() for k, v in src.state_dict().items()},
+                                           "ast"))
+    monkeypatch.setenv("EAV_TPU_AST_CKPT", str(tmp_path))
+    model = ast_tiny()
+    model.load_state_dict(_pretrained_params("ast", 5))
+    x = torch.randn(2, 128, 128, generator=torch.Generator().manual_seed(5)).to(cuda)
+    with torch.no_grad():
+        torch.testing.assert_close(model.to(cuda).eval()(x, mode="features"),
+                                   src(x, mode="features"), atol=1e-6, rtol=1e-6)

@@ -87,11 +87,16 @@ def _save(ldir, mods_logits):
         np.save(ldir / f"s01_{m}_{split}.npy", logits)
 
 
-def test_run_fusion_matches_jax(tmp_path, rng):
+@pytest.mark.parametrize("mods", [None, ("eeg", "audio_scnn", "vision")],
+                         ids=["default", "scnn_audio"])
+def test_run_fusion_matches_jax(tmp_path, rng, mods):
     """The same archives through both packages' run_fusion, weighted mode,
-    in-order batches: the same accuracy and weighted F1."""
+    in-order batches: the same accuracy and weighted F1. ``None`` is the
+    default mix (EEG, audio, vision); the other is the mix of
+    tests/test_pipeline_e2e.py with the SCNN's audio archives."""
+    kw = {} if mods is None else {"mods": mods}
     _save(tmp_path / "logits", {(m, split): rng.normal(size=(n, 5)).astype(np.float32)
-                                for m in ("eeg", "audio", "vision")
+                                for m in (mods or ("eeg", "audio", "vision"))
                                 for split, n in (("train", 50), ("test", 25))})
 
     def no_shuffle(presets):
@@ -100,9 +105,9 @@ def test_run_fusion_matches_jax(tmp_path, rng):
         return presets
 
     want = JaxPipelines(str(tmp_path), logits_dir=str(tmp_path / "logits"),
-                        presets=no_shuffle(jax_default_presets())).run_fusion(1)
+                        presets=no_shuffle(jax_default_presets())).run_fusion(1, **kw)
     got = ModalityPipelines(str(tmp_path), logits_dir=str(tmp_path / "logits"),
-                            presets=no_shuffle(default_presets()), device="cpu").run_fusion(1)
+                            presets=no_shuffle(default_presets()), device="cpu").run_fusion(1, **kw)
     assert set(got.metrics) == set(want.metrics) == {"accuracy", "weighted_f1"}
     for key in want.metrics:
         assert got.metrics[key] == pytest.approx(want.metrics[key], abs=1e-6), key
@@ -167,7 +172,8 @@ def test_fusion_beats_every_single_modality(tmp_path, mode, case):
 
 def test_fusion_preset_and_task_dispatch(tmp_path, rng):
     """fusion_sweep's fine-tune config equals the JAX package's; task_fn
-    runs fusion and refuses the modalities not ported yet."""
+    runs fusion, sends the SCNN and ResNet keys to their loaders (no data
+    here, so those raise) and refuses an unknown modality."""
     from eav_tpu.core.config import get_preset as jax_get_preset
 
     ft, jft = get_preset("fusion_sweep").finetune, jax_get_preset("fusion_sweep").finetune
@@ -176,7 +182,7 @@ def test_fusion_preset_and_task_dispatch(tmp_path, rng):
         assert getattr(ft, field) == getattr(jft, field), field
     assert [(p.epochs, p.lr, p.freeze) for p in ft.phases] == \
         [(p.epochs, p.lr, p.freeze) for p in jft.phases]
-    assert set(default_presets()) == set(jax_default_presets()) - {"audio_scnn", "vision_resnet"}
+    assert set(default_presets()) == set(jax_default_presets())
     assert isinstance(build_model(default_presets()["fusion"], num_modalities=2), FusionHead)
     _save(tmp_path / "logits", {(m, split): rng.normal(size=(n, 5)).astype(np.float32)
                                 for m in ("eeg", "audio", "vision")
@@ -188,7 +194,7 @@ def test_fusion_preset_and_task_dispatch(tmp_path, rng):
                               presets=presets, device="cpu")
     assert set(pipes.task_fn(1, "fusion").metrics) == {"accuracy", "weighted_f1"}
     for modality in ("audio_scnn", "vision_resnet"):
-        with pytest.raises(KeyError, match="not ported yet"):
+        with pytest.raises(FileNotFoundError, match="subject01"):
             pipes.task_fn(1, modality)
     with pytest.raises(KeyError, match="unknown modality"):
         pipes.task_fn(1, "smell")

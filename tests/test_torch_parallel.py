@@ -290,9 +290,11 @@ def test_run_stacked_eeg_end_to_end(tmp_path, rng):
 
 
 def test_run_stacked_refuses_modalities_not_ported(tmp_path):
+    """The SCNN and ResNet baselines run serially; their stacked fits are not
+    ported, and run_stacked refuses them as it refuses fusion."""
     pipes = ModalityPipelines(str(tmp_path), device="cpu")
     for modality in ("audio_scnn", "vision_resnet"):
-        with pytest.raises(KeyError, match="not ported yet"):
+        with pytest.raises(KeyError, match="does not support"):
             pipes.run_stacked([1, 2], modality)
     with pytest.raises(KeyError, match="does not support"):
         pipes.run_stacked([1, 2], "fusion")

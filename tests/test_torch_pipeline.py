@@ -208,12 +208,14 @@ def test_port_and_chip_smoke_import_without_jax():
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     names = out.stdout.strip().splitlines()[-1].split()
-    assert len(names) >= 37  # every module was imported
-    assert {"eav_tpu_torch.parallel.subject", "eav_tpu_torch.models.fusion"} <= set(names)
+    assert len(names) >= 40  # every module was imported
+    assert {"eav_tpu_torch.parallel.subject", "eav_tpu_torch.models.fusion",
+            "eav_tpu_torch.models.scnn_audio", "eav_tpu_torch.models.resnet_attn",
+            "eav_tpu_torch.models.hf_import"} <= set(names)
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):
-    from eav_tpu_torch.ingest.audio import DataLoadAudio, ast_frontend
+    from eav_tpu_torch.ingest.audio import DataLoadAudio, ast_frontend, scnn_frontend
     from eav_tpu_torch.ingest.eeg import DataLoadEEG
     from eav_tpu_torch.ingest.video import DataLoadVision
     from eav_tpu_torch.ingest.vision import vit_pixel_values
@@ -229,6 +231,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatc
         DataLoadAudio(1, str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         ast_frontend(np.zeros((1, 16000), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        scnn_frontend(np.zeros((1, 22050), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         DataLoadVision(1, str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
@@ -349,3 +353,52 @@ def test_load_eeg_falls_back_to_the_eeg_presets_config(tmp_path, rng):
     np.testing.assert_array_equal(got_y, want_y)
     scale = float(np.abs(want_x).max())
     np.testing.assert_allclose(got_x, want_x, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("frontend", ["fbank", "scnn180"])
+def test_audio_cache_key_matches_jax(frontend):
+    """``AudioPreprocConfig`` is copied whole, so the audio cache key (the
+    preset's config hash) is the JAX package's, for both frontends."""
+    from eav_tpu.core.config import AudioPreprocConfig as JaxAudioPreprocConfig
+    from eav_tpu.train.pipeline import _cfg_hash as jax_cfg_hash
+    from eav_tpu_torch.train.pipeline import _cfg_hash
+
+    preset = {"fbank": "ast_finetune", "scnn180": "scnn_audio"}[frontend]
+    from eav_tpu_torch.core.config import get_preset
+
+    assert _cfg_hash(get_preset(preset).audio) == jax_cfg_hash(jax_get_preset(preset).audio)
+    assert get_preset(preset).audio.frontend == frontend
+    kw = dict(frontend=frontend, max_frames=128, scnn_sr=16000)
+    assert _cfg_hash(AudioPreprocConfig(**kw)) == jax_cfg_hash(JaxAudioPreprocConfig(**kw))
+
+
+@pytest.mark.parametrize("key", ["eeg", "eeg_conformer", "audio", "audio_scnn", "vision",
+                                 "vision_resnet", "fusion"])
+def test_default_presets_hold_every_jax_key(key):
+    """All seven modality keys, each with the JAX preset's name, trainer
+    fields, phases and ingest configs (the same hashes), and a model the
+    port builds; ``task_fn`` knows each key."""
+    import dataclasses
+
+    from eav_tpu.train.pipeline import _cfg_hash as jax_cfg_hash
+    from eav_tpu.train.pipeline import default_presets as jax_default_presets
+    from eav_tpu_torch.train.pipeline import _cfg_hash, build_model, default_presets
+
+    presets, jax_presets = default_presets(), jax_default_presets()
+    assert set(presets) == set(jax_presets)
+    p, jp = presets[key], jax_presets[key]
+    assert p.name == jp.name
+    want = dataclasses.asdict(jp.finetune)
+    for field, value in dataclasses.asdict(p.finetune).items():
+        if field != "model_kwargs":  # EEGNet's temporal_mode is chosen on the H100
+            assert value == want[field], (key, field)
+    for part in ("eeg", "audio", "vision"):
+        a, b = getattr(p, part), getattr(jp, part)
+        assert (a is None) == (b is None) and (a is None or _cfg_hash(a) == jax_cfg_hash(b))
+    if key == "fusion":
+        return
+    model = build_model(p) if key not in ("audio", "vision") else None
+    names = {"eeg": "EEGNet", "eeg_conformer": "ConformerEEG", "audio_scnn": "SCNNAudio",
+             "vision_resnet": "ResNetAttn"}
+    if model is not None:
+        assert type(model).__name__ == names[key]
