@@ -81,7 +81,33 @@ Phases, each of which fails the run on error:
    S 2 with its peak memory;
 16. fusion: ``run_fusion(s, mods=("eeg", "eeg_conformer"))`` over the
    archives of phase 13 for each of the conformer group's 4 subjects at the
-   preset's 100 epochs: the row keys and finite fused logits.
+   preset's 100 epochs: the row keys and finite fused logits;
+17. checkpoint import: seeded AST-base and ViT-base written under HF names
+   (safetensors and bin) and imported (features equal, a q/k swap fails),
+   and ``run_audio`` from the AST checkpoint through K1-K3;
+18. scnn_audio: the scnn180 frontend on 400 segments against float64 on the
+   CPU (tuning indices equal; a chroma pinned to tuning 0 fails),
+   ``run_audio(1, "scnn180")`` and the SCNN step;
+19. resnet_vision: ResNetAttn card vs CPU (a sigmoid on the attention
+   fails), a torchvision-layout import, ``run_vision(1, "vision_resnet")``
+   at 224 and the ResNet step with a profile;
+20. MTCNN: ``default_face_cropper`` from seeded facenet-layout weights under
+   ``EAV_TPU_MTCNN_WEIGHTS`` on a 100-frame 640x480 clip of a drawn face,
+   at the preset's thresholds (random weights find nothing there) and at
+   the cut ``CUT_THRESHOLDS``; the candidates after each stage per frame;
+   P-, R- and O-Net card vs CPU to 1e-5, the cascade card vs CPU on every
+   4th frame (boxes to 0.02 px, probabilities to 1e-5, a difference only
+   where a candidate lies within 1e-5 of its threshold), the face crops
+   within 1; planted faults (the pyramid without antialias, R-Net flattened
+   in JAX's order) must fail; ``crop_faces_batched`` timed at 640x480 and
+   480x270 (median of 3) with its split, peak memory and a profile;
+21. sweep: ``SweepRunner`` over ``task_fn`` for ``eeg`` (EEGNet, 2 epochs)
+   on phase 10's subject, a link to it and a subject without data, with
+   prefetch and checkpoints: two done records, the third subject failed
+   twice (``max_retries`` 1), a second runner finds nothing pending, the
+   artifacts reload equal, ``aggregate`` equals numpy's; ``run_batched``
+   over ``run_stacked`` at group size 2 bisects the group holding the
+   failing subject.
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
 float32 means float32 throughout the run. ``CUBLAS_WORKSPACE_CONFIG`` is set
@@ -1690,6 +1716,419 @@ def run_resnet_path(card: str, ckpt: str) -> None:
         raise AssertionError(f"metrics keys {sorted(m)}, test archive {test_arch.shape}")
 
 
+# -----------------------------------------------------------------------------
+# 20. MTCNN on the card
+# -----------------------------------------------------------------------------
+
+MTCNN_TOL = 1e-5  # the nets' outputs and the probabilities, card against the CPU
+BOX_TOL = 0.02  # px, the boxes, card against the CPU
+# Random weights leave stage 1 empty at the preset's (0.6, 0.7, 0.7) and
+# flood it at the JAX tests' (0.2, 0.05, 0.05), where nearly every position
+# passes (the phase prints both). The checks and the timings run where
+# 60-90 candidates a frame pass stage 1 and about half pass each later stage.
+CUT_THRESHOLDS = (0.5, 0.5, 0.35)
+
+
+def mtcnn_state_dicts(seed: int = 20) -> list:
+    """facenet-layout P/R/O-Net state dicts: fan-in-scaled normals from a
+    numpy seed, the PReLU slopes at 0.25 scale."""
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.models import mtcnn
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for cls in (mtcnn.PNet, mtcnn.RNet, mtcnn.ONet):
+        sd = {}
+        for k, v in cls().state_dict().items():
+            scale = 1.0 / np.sqrt(np.prod(v.shape[1:])) if v.ndim >= 2 else 0.25
+            sd[k] = torch.from_numpy((rng.standard_normal(tuple(v.shape)) * scale).astype(np.float32))
+        out.append(sd)
+    return out
+
+
+def synthetic_face_image(h: int, w: int):
+    """A frontal face drawn with numpy (scripts/convert_mtcnn.py's fixture):
+    shaded head ellipse, eyes, brows, nose and mouth on a dark ground."""
+    import numpy as np
+
+    img = np.full((h, w, 3), 60, np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cy, cx = h * 0.5, w * 0.5
+    d = ((yy - cy) / (h * 0.36)) ** 2 + ((xx - cx) / (w * 0.27)) ** 2
+    face = d < 1.0
+    shade = np.clip(1.0 - 0.25 * d, 0.0, 1.0)
+    skin = np.stack([224 * shade, 182 * shade, 152 * shade], axis=-1)
+    img[face] = skin[face].astype(np.uint8)
+
+    def blob(y, x, ry, rx, color):
+        img[((yy - y) / ry) ** 2 + ((xx - x) / rx) ** 2 < 1.0] = color
+
+    for sx in (-1, 1):
+        ex, ey = cx + sx * w * 0.11, cy - h * 0.08
+        blob(ey, ex, h * 0.035, w * 0.055, (250, 250, 250))  # sclera
+        blob(ey, ex, h * 0.025, w * 0.030, (80, 50, 30))  # iris
+        blob(ey, ex, h * 0.012, w * 0.014, (10, 10, 10))  # pupil
+        blob(ey - h * 0.06, ex, h * 0.012, w * 0.06, (60, 40, 30))  # brow
+    blob(cy + h * 0.03, cx, h * 0.045, w * 0.020, (196, 144, 118))  # nose
+    blob(cy + h * 0.14, cx, h * 0.025, w * 0.085, (150, 60, 60))  # mouth
+    return img
+
+
+def face_clip(n: int = 100, h: int = 480, w: int = 640):
+    """A clip of ``n`` (h, w) RGB frames (every 6th of 6n), a face of 5/8 the
+    frame's height drifting across it."""
+    import numpy as np
+
+    fh, fw = 5 * h // 8, 5 * w // 8
+    face = synthetic_face_image(fh, fw)
+    frames = np.full((n, h, w, 3), 60, np.uint8)
+    for i in range(n):
+        y0 = (h - fh) // 2 + int((h - fh) // 3 * np.sin(i / 7))
+        x0 = (i * 3) % (w - fw)
+        frames[i, y0 : y0 + fh, x0 : x0 + fw] = face
+    return frames
+
+
+def _unmatched(a, b):
+    """Rows of candidate arrays (n, 5) ``a`` with no row of ``b`` within the
+    box and probability tolerances."""
+    import numpy as np
+
+    if len(b) == 0:
+        return a
+    close = ((np.abs(a[:, None, :4] - b[None, :, :4]).max(-1) <= BOX_TOL)
+             & (np.abs(a[:, None, 4] - b[None, :, 4]) <= MTCNN_TOL))
+    return a[~close.any(1)]
+
+
+def compare_cascades(card_stages, cpu_stages, thresholds) -> list:
+    """Each frame's candidates after each stage, card against CPU. A frame
+    whose lists differ is explained only by a candidate, present on one side
+    only at the first stage that differs, whose probability lies within
+    MTCNN_TOL of that stage's threshold: roundoff flipped it. Returns
+    (frame, stage, distance) of the explained frames; raises otherwise."""
+    import numpy as np
+
+    explained = []
+    for f in range(len(card_stages[0])):
+        for k, thr in enumerate(thresholds):
+            a, b = card_stages[k][f], cpu_stages[k][f]
+            lone = np.concatenate([_unmatched(a, b), _unmatched(b, a)])
+            if len(lone) == 0:
+                continue
+            dist = float(np.abs(lone[:, 4] - thr).min())
+            if dist >= MTCNN_TOL:
+                raise AssertionError(
+                    f"frame {f}: stage {k + 1} candidates differ, card {len(a)} / CPU {len(b)}, "
+                    f"nearest to the threshold {thr} by {dist:.3g} (>= {MTCNN_TOL})")
+            explained.append((f, k + 1, dist))
+            break
+    return explained
+
+
+def must_differ(card_stages, cpu_stages, thresholds, what: str) -> None:
+    try:
+        compare_cascades(card_stages, cpu_stages, thresholds)
+    except AssertionError:
+        return
+    raise AssertionError(f"the check passed a planted fault: {what}")
+
+
+def check_mtcnn_nets(det, cpu_det, frames, cpu_stage1):
+    """P-, R- and O-Net on the card against the CPU on the same inputs: the
+    pyramid's first scale of two frames, and the 24 / 48 crops of up to 256
+    stage-1 candidates -> (max abs err, input shape) by net. R-Net
+    flattened in the JAX package's order must fail."""
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.models import mtcnn
+    from eav_tpu_torch.ops.image import resize_bilinear
+
+    _, hs, ws = cpu_det._pyramid(*frames.shape[1:3])[0]
+    fcpu = torch.as_tensor(frames)
+    idx, sq = cpu_det._flatten(cpu_stage1, *frames.shape[1:3])
+    idx, sq = idx[:256], sq[:256]
+    inputs = {
+        "pnet": cpu_det._nchw(resize_bilinear(fcpu[:2].float(), hs, ws)),
+        "rnet": cpu_det._nchw(cpu_det._gather_crops(fcpu, idx, sq, 24)),
+        "onet": cpu_det._nchw(cpu_det._gather_crops(fcpu, idx, sq, 48)),
+    }
+    errs = {}
+    with torch.no_grad():
+        for name, x in inputs.items():
+            want = getattr(cpu_det, name)(x)
+            got = getattr(det, name)(x.cuda())
+            errs[name] = max(max_err(g.cpu(), w, MTCNN_TOL, 0.0) for g, w in zip(got, want))
+
+        class JaxOrderRNet(mtcnn.RNet):  # the planted fault: Flax's (C, H, W) flatten
+            def forward(self, x):
+                x = torch.nn.functional.max_pool2d(self.prelu1(self.conv1(x)), 3, 2, ceil_mode=True)
+                x = torch.nn.functional.max_pool2d(self.prelu2(self.conv2(x)), 3, 2, ceil_mode=True)
+                x = self.prelu3(self.conv3(x))
+                x = self.prelu4(self.dense4(x.reshape(x.shape[0], -1)))
+                return self.dense5_1(x).softmax(1), self.dense5_2(x)
+
+        fault = JaxOrderRNet().cuda().eval()
+        fault.load_state_dict(det.rnet.state_dict())
+        got = fault(inputs["rnet"].cuda())
+        want = cpu_det.rnet(inputs["rnet"])
+        must_reject(got[1].cpu(), want[1], MTCNN_TOL, 0.0, "R-Net flattened in JAX's order")
+    return errs, {k: tuple(v.shape) for k, v in inputs.items()}
+
+
+class StageClock:
+    """Milliseconds of ``det``'s P-Net pyramid calls and its crop calls
+    (gather, R-Net and O-Net, and the final crops), each ending in a copy to
+    the host, so the host clock reads the device's work; the rest of a call
+    is host NMS and box math."""
+
+    def __init__(self, det):
+        self.det, self.ms = det, {"pyramid": 0.0, "crops": 0.0}
+
+    def __enter__(self):
+        for name, key in (("_pnet_scaled", "pyramid"), ("_crops_chunked", "crops")):
+            setattr(self.det, name, self._timed(getattr(self.det, name), key))
+        return self
+
+    def __exit__(self, *exc):
+        del self.det._pnet_scaled, self.det._crops_chunked
+
+    def _timed(self, fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.ms[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+
+def time_face_crops(card: str, det, h: int, w: int, n: int = 100) -> None:
+    """frames/s of ``crop_faces_batched`` on an ``n``-frame h x w clip, the
+    median of 3, with the split of the median run, peak memory and one
+    profiled run for the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = face_clip(n, h, w)
+    det.crop_faces_batched(frames)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        with StageClock(det) as clock:
+            t0 = time.perf_counter()
+            det.crop_faces_batched(frames)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+        runs.append((total, clock.ms["pyramid"], clock.ms["crops"]))
+    total, pyr, crops = sorted(runs)[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det.crop_faces_batched(frames)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    log(f"crop_faces_batched, {n} frames {w}x{h}, thresholds {det.thresholds}: "
+        f"{n / total * 1e3:.1f} frames/s ({total:.1f} ms, runs {[round(r[0], 1) for r in runs]}): "
+        f"P-Net pyramid {pyr:.1f} ms, host NMS and box math {total - pyr - crops:.1f} ms, "
+        f"R/O-Net and gather {crops:.1f} ms; peak {peak:.2f} GiB; profiled run {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%) on {card}")
+
+
+def run_mtcnn_phase(card: str) -> None:
+    """MTCNN on the card: ``default_face_cropper`` from seeded weights under
+    ``EAV_TPU_MTCNN_WEIGHTS``, held against the port on the CPU on the same
+    weights, with two planted faults, then timed."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.models import mtcnn
+
+    sds = mtcnn_state_dicts()
+    preset_cfg = get_preset("vit_finetune").vision
+    cfg = dataclasses.replace(preset_cfg, mtcnn_thresholds=CUT_THRESHOLDS)
+    frames = face_clip()
+    with tempfile.TemporaryDirectory() as weights:
+        for net, sd in zip(mtcnn.NETS, sds):
+            torch.save(sd, os.path.join(weights, f"{net}.pt"))
+        os.environ["EAV_TPU_MTCNN_WEIGHTS"] = weights
+        try:
+            cropper = mtcnn.default_face_cropper(cfg, "cuda")
+            preset_cropper = mtcnn.default_face_cropper(preset_cfg, "cuda")
+        finally:
+            del os.environ["EAV_TPU_MTCNN_WEIGHTS"]
+    det = cropper.func.__self__
+    cpu_det = mtcnn.MTCNNDetector(*sds, thresholds=CUT_THRESHOLDS, device="cpu")
+
+    # the main path: the clip through the cropper, at the cut and at the preset
+    t0 = time.perf_counter()
+    crops = cropper(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stages = det.cascade_batched(frames)
+    hits = sum(len(c) > 0 for c in stages[2])
+    preset_stages = preset_cropper.func.__self__.cascade_batched(frames)
+    preset_crops = preset_cropper(frames)
+    def counts(st) -> str:
+        return " | ".join(" ".join(str(len(c)) for c in s) for s in st)
+
+    log(f"MTCNN (default_face_cropper, {len(frames)} frames {frames.shape[2]}x{frames.shape[1]}, "
+        f"seeded facenet-layout "
+        f"weights): {wall:.2f} s for the clip at the cut thresholds {CUT_THRESHOLDS}, crops "
+        f"{crops.shape} {crops.dtype}, {hits} frames with a face")
+    log(f"  candidates per frame after stages 1 / 2 / 3 at {CUT_THRESHOLDS}: {counts(stages)}")
+    log(f"  at the preset's {preset_cfg.mtcnn_thresholds}: {counts(preset_stages)}")
+    if crops.shape != (100, 56, 56, 3) or preset_crops.shape != (100, 56, 56, 3) or hits == 0:
+        raise AssertionError(f"crops {crops.shape}, {preset_crops.shape}, {hits} hits")
+    flood = mtcnn.MTCNNDetector(*sds, thresholds=(0.2, 0.05, 0.05), device="cuda")
+    t0 = time.perf_counter()
+    flood_stages = flood.cascade_batched(frames[:1])
+    log(f"  at the JAX tests' (0.2, 0.05, 0.05), one frame: {counts(flood_stages)} in "
+        f"{time.perf_counter() - t0:.1f} s (the host's NMS over the flood)")
+
+    # card against CPU, every 4th frame
+    sub = frames[::4]
+    t0 = time.perf_counter()
+    cpu_stages = cpu_det.cascade_batched(sub)
+    cpu_s = time.perf_counter() - t0
+    errs, shapes = check_mtcnn_nets(det, cpu_det, sub, cpu_stages[0])
+    log(f"  P-, R- and O-Net card vs CPU on inputs {shapes}: max abs err {errs} "
+        f"(atol {MTCNN_TOL}); R-Net flattened in JAX's order fails")
+    card_stages = det.cascade_batched(sub)
+    explained = compare_cascades(card_stages, cpu_stages, CUT_THRESHOLDS)
+    same = [f for f in range(len(sub)) if f not in {e[0] for e in explained}]
+    card_crops, cpu_crops = det.crop_faces_batched(sub), cpu_det.crop_faces_batched(sub)
+    crop_err = int(np.abs(card_crops[same].astype(int) - cpu_crops[same].astype(int)).max())
+    if crop_err > 1:
+        raise AssertionError(f"face crops card vs CPU differ by {crop_err} > 1")
+    log(f"  cascade card vs CPU on {len(sub)} frames (CPU {cpu_s:.1f} s): every stage's "
+        f"candidates within {BOX_TOL} px and {MTCNN_TOL} except {len(explained)} frames, each "
+        f"explained by a candidate this close to its threshold (frame, stage, distance): "
+        f"{explained}; face crops of the other {len(same)} frames within {crop_err} (<= 1)")
+    orig = mtcnn.resize_bilinear
+
+    def interpolate(x, height, width):  # the planted fault: no antialias
+        return torch.nn.functional.interpolate(
+            x.permute(0, 3, 1, 2), (height, width), mode="bilinear", antialias=False,
+            align_corners=False).permute(0, 2, 3, 1)
+
+    mtcnn.resize_bilinear = interpolate
+    try:
+        fault_stages = det.cascade_batched(sub)
+    finally:
+        mtcnn.resize_bilinear = orig
+    must_differ(fault_stages, cpu_stages, CUT_THRESHOLDS,
+                "the pyramid through F.interpolate(antialias=False)")
+    log("  the pyramid through F.interpolate(antialias=False) fails the cascade check")
+
+    time_face_crops(card, det, 480, 640)
+    time_face_crops(card, det, 270, 480)
+
+
+# -----------------------------------------------------------------------------
+# 21. the sweep on the card
+# -----------------------------------------------------------------------------
+
+def run_sweep_phase(card: str, eeg_root: str) -> None:
+    """``SweepRunner`` over ``task_fn('eeg')`` (EEGNet, full width, 2 epochs)
+    for phase 10's subject, a link to it and a subject with no data, with
+    per-task checkpoints and the pipelines' prefetch; then ``run_batched``
+    over ``run_stacked`` at group size 2 with the failing subject in a
+    group; ``aggregate`` against numpy."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.core.checkpoint import load_pytree
+    from eav_tpu_torch.core.config import SweepConfig
+    from eav_tpu_torch.core.sweep import SweepRunner, _read_jsonl
+    from eav_tpu_torch.train.pipeline import ModalityPipelines
+
+    src = os.path.join(eeg_root, "EAV", "subject01", "EEG")
+    with tempfile.TemporaryDirectory() as root:
+        for s in (1, 2, 4):  # subject 3 has no data
+            edir = os.path.join(root, "EAV", f"subject{s:02d}", "EEG")
+            os.makedirs(edir)
+            for suffix in ("eeg.mat", "eeg_label.mat"):
+                os.symlink(os.path.join(src, f"subject01_{suffix}"),
+                           os.path.join(edir, f"subject{s:02d}_{suffix}"))
+        pipes = ModalityPipelines(os.path.join(root, "EAV"), cache_dir=os.path.join(root, "cache"),
+                                  presets=eeg_presets(), device="cuda")
+        results = {}
+
+        def task(subject, modality):
+            results[subject] = pipes.task_fn(subject, modality)
+            return results[subject]
+
+        cfg = SweepConfig(subjects=(1, 2, 3), modalities=("eeg",), max_retries=1,
+                          journal_path=os.path.join(root, "journal.jsonl"),
+                          metrics_path=os.path.join(root, "metrics.jsonl"),
+                          checkpoint_dir=os.path.join(root, "ckpt"))
+        runner = SweepRunner(cfg, task)
+        t0 = time.perf_counter()
+        runner.run(verbose=False, prefetch_fn=pipes.prefetch)
+        runner.run(verbose=False, prefetch_fn=pipes.prefetch)  # the retry of subject 3
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        journal = _read_jsonl(cfg.journal_path)
+        got = [(r["task"], r["status"], r["attempts"]) for r in journal]
+        want = [("subject01_eeg", "done", 1), ("subject02_eeg", "done", 1),
+                ("subject03_eeg", "failed", 1), ("subject03_eeg", "failed", 2)]
+        if got != want or SweepRunner(cfg, task).pending_tasks():
+            raise AssertionError(f"journal {got}, pending {SweepRunner(cfg, task).pending_tasks()}")
+        for s in (1, 2):
+            saved = load_pytree(os.path.join(cfg.checkpoint_dir, f"subject{s:02d}_eeg"))
+            art = results[s].artifacts
+            for group in ("params", "history"):
+                for k, v in art[group].items():
+                    if not np.array_equal(saved[group][k], np.asarray(v)):
+                        raise AssertionError(f"subject {s} {group}/{k} reloads unequal")
+        rows = _read_jsonl(cfg.metrics_path)
+        if {k for r in rows for k in r} != METRICS_KEYS | {"subject", "modality", "wall_clock_s"}:
+            raise AssertionError(f"metrics keys {sorted({k for r in rows for k in r})}")
+        agg = runner.aggregate()["eeg"]
+        acc = [r["accuracy"] for r in rows]
+        if (agg["n_subjects"], agg["mean_accuracy"], agg["std_accuracy"]) != (
+                2, float(np.mean(acc[::-1])), float(np.std(acc[::-1]))):
+            raise AssertionError(f"aggregate {agg} against numpy over {acc}")
+        log(f"SweepRunner (task_fn 'eeg', EEGNet full width, 2 epochs, prefetch, checkpoints): "
+            f"{wall:.1f} s; journal {got}; seconds a task "
+            f"{[r.get('wall_clock_s') for r in journal]}; a second runner finds nothing "
+            f"pending; the saved params and histories reload equal; aggregate {agg} on {card}")
+
+        cfg2 = SweepConfig(subjects=(1, 2, 3, 4), modalities=("eeg",), max_retries=0,
+                           journal_path=os.path.join(root, "journal2.jsonl"),
+                           metrics_path=os.path.join(root, "metrics2.jsonl"))
+        t0 = time.perf_counter()
+        state = SweepRunner(cfg2, task).run_batched(
+            "eeg", lambda group: pipes.run_stacked(group, "eeg"), group_size=2, verbose=False)
+        wall = time.perf_counter() - t0
+        status = {t: (r["status"], "stacked_error" in r) for t, r in sorted(state.items())}
+        rows = _read_jsonl(cfg2.metrics_path)
+        want = {"subject01_eeg": ("done", False), "subject02_eeg": ("done", False),
+                "subject03_eeg": ("failed", True), "subject04_eeg": ("done", False)}
+        keys = {k for r in rows for k in r}
+        if status != want or keys != METRICS_KEYS | {"subject", "modality", "wall_clock_s",
+                                                     "group_size"}:
+            raise AssertionError(f"run_batched: {status}, metrics keys {sorted(keys)}")
+        log(f"run_batched('eeg', run_stacked, group size 2) over subjects 1-4: {wall:.1f} s; "
+            f"{status} (the group [3, 4] bisected, subject 3 failed after its serial "
+            f"fallback); group sizes {[r['group_size'] for r in rows]}; seconds a task "
+            f"{[r['wall_clock_s'] for r in rows]}")
+
+
 def main() -> int:
     import tempfile
 
@@ -1788,7 +2227,6 @@ def main() -> int:
     # fusion's host-bound head fits outside the deterministic mode
     run_fusion_phase(card, eeg_pipelines(eeg_root.name, "stacked"))
     mark("16. fusion")
-    eeg_root.cleanup()
 
     with tempfile.TemporaryDirectory() as ckpt_root:
         ast_ckpt = check_checkpoint_import(card, ckpt_root)
@@ -1805,6 +2243,12 @@ def main() -> int:
                         "float32, TF32 off")
         profile_train_step(card, "resnet_vision", top=12)
         mark("19. resnet_vision")
+
+    run_mtcnn_phase(card)
+    mark("20. MTCNN")
+    run_sweep_phase(card, eeg_root.name)
+    mark("21. sweep")
+    eeg_root.cleanup()
 
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():

@@ -194,7 +194,7 @@ class FinetuneConfig:
 
 @dataclass(frozen=True)
 class SweepConfig:
-    """The 42-subject x modality sweep (its runner is not ported yet)."""
+    """The 42-subject x modality sweep (``core/sweep.SweepRunner``)."""
 
     subjects: Tuple[int, ...] = tuple(range(1, NUM_SUBJECTS + 1))
     modalities: Tuple[str, ...] = ("eeg", "audio", "vision")

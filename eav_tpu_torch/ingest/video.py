@@ -6,11 +6,12 @@ from filename token 4.
 
 Decoding goes through cv2 (the JAX package's native libav reader is a later
 slice), imported inside the functions that use it: a machine without cv2 can
-import this module. Face crops: a ``face_cropper`` when one is given, else
-the square center crop resized to ``face_image_size`` (what the JAX package
-does when it has no MTCNN weights); with ``EAV_TPU_MTCNN_WEIGHTS`` naming a
-directory the JAX package would run MTCNN, which the port does not have yet,
-so the loader raises rather than crop differently.
+import this module, and crop and resize without it (``resize_linear_u8``
+computes cv2's resize bit for bit). Face crops: a ``face_cropper`` when one
+is given, else MTCNN (``models/mtcnn.py``) on the loader's device when
+``EAV_TPU_MTCNN_WEIGHTS`` names its weights, else the square center crop
+resized to ``face_image_size`` (what the JAX package does without weights).
+A variable that names no weights raises; the JAX package center-crops.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 
 from eav_tpu_torch.core.config import EMOTION_TO_INDEX, VisionPreprocConfig
 from eav_tpu_torch.core.device import resolve_device
+from eav_tpu_torch.ops.image import resize_linear_u8
 
 
 def decode_strided_frames(path: str, stride: int = 6, max_frames: int = 600) -> List[np.ndarray]:
@@ -85,35 +87,24 @@ def decode_clips_threaded(
 
 
 def center_crop_resize(frames: np.ndarray, size: int) -> np.ndarray:
-    """(N, H, W, 3) uint8 -> (N, size, size, 3): square center crop + cv2
-    resize (faces are centered in EAV recordings)."""
-    import cv2
-
-    n, h, w, _ = frames.shape
+    """(N, H, W, 3) uint8 -> (N, size, size, 3): square center crop resized
+    as ``cv2.resize`` does (faces are centered in EAV recordings)."""
+    _, h, w, _ = frames.shape
     s = min(h, w)
     y0, x0 = (h - s) // 2, (w - s) // 2
-    out = np.empty((n, size, size, 3), np.uint8)
-    for i in range(n):
-        out[i] = cv2.resize(frames[i, y0 : y0 + s, x0 : x0 + s], (size, size))
-    return out
+    return resize_linear_u8(frames[:, y0 : y0 + s, x0 : x0 + s], size, size)
 
 
 def resize_frames(frames: np.ndarray, size: int) -> np.ndarray:
-    import cv2
-
-    n = frames.shape[0]
-    out = np.empty((n, size, size, 3), np.uint8)
-    for i in range(n):
-        out[i] = cv2.resize(frames[i], (size, size))
-    return out
+    """(N, H, W, 3) uint8 -> (N, size, size, 3), as ``cv2.resize`` does."""
+    return resize_linear_u8(frames, size, size)
 
 
 class DataLoadVision:
     """``process() -> (images, image_label_idx)`` with images (samples,
     frames_per_sample, H, W, 3) uint8 (`Dataload_vision.py:96-99`).
 
-    Decoding and resizing are host work; ``device`` is where face detection
-    runs once the port has it (MTCNN, ROADMAP slice 6)."""
+    Decoding and resizing are host work; ``device`` is where MTCNN runs."""
 
     def __init__(
         self,
@@ -141,13 +132,12 @@ class DataLoadVision:
         cfg = self.cfg
         if not cfg.face_detection:
             return resize_frames(frames, cfg.image_size)
+        if self._face_cropper is None:
+            from eav_tpu_torch.models.mtcnn import default_face_cropper
+
+            self._face_cropper = default_face_cropper(cfg, self.device)
         if self._face_cropper is not None:
             return self._face_cropper(frames)
-        if os.path.isdir(os.environ.get("EAV_TPU_MTCNN_WEIGHTS", "")):
-            raise NotImplementedError(
-                "EAV_TPU_MTCNN_WEIGHTS is set, so the JAX package would crop faces with "
-                "MTCNN; MTCNN is ROADMAP slice 6 of the port. Unset it for the center "
-                "crop, or pass face_cropper=")
         return center_crop_resize(frames, cfg.face_image_size)
 
     def process(self) -> Tuple[np.ndarray, np.ndarray]:

@@ -14,7 +14,10 @@ The port keeps the Flax names, so the mapping is mechanical:
   or NWC (position major), the port NCHW or NCW (feature major), so their
   input columns are permuted;
 - ResNetAttn's Flax block ``layer{s}_{b}`` is torchvision's ``layer{s}.{b}``,
-  its ``down_conv`` / ``down_bn`` are ``downsample.0`` / ``.1``.
+  its ``down_conv`` / ``down_bn`` are ``downsample.0`` / ``.1``;
+- MTCNN's nets keep facenet_pytorch's names: a PReLU's ``alpha`` is its
+  ``weight``, and the first dense layer of R-Net and O-Net reads facenet's
+  (W, H, C) flatten where Flax reads (C, H, W).
 """
 
 from __future__ import annotations
@@ -182,4 +185,32 @@ def resnet_attn_params_from_jax(params: Mapping[str, Any],
             _batch_norm(sd, f"{pre}.downsample.1", block["down_bn"], bs[name]["down_bn"])
     for name in ("attn_fc1", "attn_fc2", "cls_fc1", "cls_fc2"):
         _dense(sd, name, params[name])
+    return sd
+
+
+# MTCNN: the net -> (its first dense layer, H, W, C of the conv output it reads)
+_MTCNN_DENSE_SPATIAL = {"rnet": ("dense4", 3, 3, 64), "onet": ("dense5", 3, 3, 128)}
+
+
+def mtcnn_params_from_jax(net: str, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax P-, R- or O-Net tree (``net`` is ``"pnet"``, ``"rnet"`` or
+    ``"onet"``) -> a state_dict that the port's net, facenet_pytorch's too,
+    takes strictly: conv kernels HWIO -> OIHW, dense kernels transposed, the
+    first dense layer's columns from Flax's (C, H, W) order to facenet's
+    (W, H, C), PReLU ``alpha`` -> ``weight``."""
+    first_dense, h, w, c = _MTCNN_DENSE_SPATIAL.get(net, (None, 0, 0, 0))
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in params.items():
+        if "alpha" in leaf:
+            sd[f"{name}.weight"] = _t(leaf["alpha"])
+            continue
+        k = np.asarray(leaf["kernel"])
+        if k.ndim == 4:
+            _conv(sd, name, leaf)
+        else:
+            k = k.T  # (out, in)
+            if name == first_dense:
+                k = k.reshape(-1, c, h, w).transpose(0, 3, 2, 1).reshape(k.shape[0], -1)
+            sd[f"{name}.weight"] = _t(k)
+        sd[f"{name}.bias"] = _t(leaf["bias"])
     return sd

@@ -8,6 +8,9 @@ filter), and each output's weights are renormalized to sum to one, which also
 handles the edges. ``F.interpolate(antialias=True)`` differs from it when
 downsampling, so the port builds the same matrices and applies them as two
 small products.
+
+``resize_linear_u8`` is the other resize of the package: cv2's uint8
+INTER_LINEAR, which the JAX package calls for its center crops, in numpy.
 """
 
 from __future__ import annotations
@@ -55,3 +58,48 @@ def pixel_values(x: torch.Tensor, size: int) -> torch.Tensor:
     if x.shape[1:3] != (size, size):
         x = resize_bilinear(x, size, size)
     return (x / 255.0 - 0.5) / 0.5
+
+
+# cv2's fixed-point INTER_LINEAR: weights in units of 1 / 2048
+_COEF_SCALE = 2048
+
+
+@functools.lru_cache(maxsize=32)
+def _linear_taps(in_size: int, out_size: int, clamp_weights: bool):
+    """cv2's taps of one axis: source indices (out_size,) x 2 and integer
+    weights (out_size,) x 2 summing to 2048. Output ``d`` samples
+    ``(d + 0.5) * in / out - 0.5`` in float32. Along x (``clamp_weights``) a
+    sample left of the first pixel or right of the last takes that pixel
+    whole; along y the weights stay as computed and the two rows are clamped
+    into the image, so an edge row's weights are split over one row."""
+    f = ((np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp_weights:
+        lo, hi = s < 0, s >= in_size - 1
+        f[lo | hi] = 0.0
+        s = np.where(lo, 0, np.where(hi, in_size - 1, s))
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    taps = (np.clip(s, 0, in_size - 1), np.clip(s + 1, 0, in_size - 1), w0, w1)
+    for t in taps:  # cached: shared by every caller
+        t.setflags(write=False)
+    return taps
+
+
+def resize_linear_u8(frames: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(N, H, W, C) uint8 -> (N, height, width, C) uint8, equal bit for bit to
+    ``cv2.resize(frame, (width, height))`` (INTER_LINEAR) frame by frame,
+    without cv2. cv2 interpolates rows in int32 with 11-bit weights, then
+    combines two rows as its vector code does: each row's sum shifted right
+    by 4, times the row weight, the high 16 bits kept, and the total rounded
+    off by 2 bits. (An exact 2x downscale, which cv2 hands to INTER_AREA,
+    gives the same numbers.)"""
+    _, h, w, _ = frames.shape
+    x0, x1, a0, a1 = _linear_taps(w, width, True)
+    y0, y1, b0, b1 = _linear_taps(h, height, False)
+    s = frames.astype(np.int32)
+    rows = s[:, :, x0] * a0[:, None] + s[:, :, x1] * a1[:, None]  # (N, H, width, C)
+    top = (b0[:, None, None] * (rows[:, y0] >> 4)) >> 16
+    bottom = (b1[:, None, None] * (rows[:, y1] >> 4)) >> 16
+    return np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)

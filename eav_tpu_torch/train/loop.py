@@ -28,7 +28,12 @@ Protocol, as in the JAX trainer and the reference (`Transformer_Audio.py`):
   loss over every kernel (``kernel_penalty``), frozen ones included;
 - ``compat_batch_mean_acc``: the history's accuracies as the mean of
   per-batch accuracies (the reference vision trainers' metric), train and
-  test alike.
+  test alike;
+- ``checkpoint_dir``: the state after each phase (weights and BN stats, the
+  Adam moments and step counts, both generators) saved as
+  ``<dir>/phase<N>.npz`` (``core/checkpoint.py``) beside a fingerprint of the
+  configuration; a rerun resumes after the last phase written, and refuses
+  a directory written under another configuration.
 
 PyTorch runs eagerly, so the JAX trainer's XLA and TPU devices (phase
 programs compiled with ``lax.scan``, chunked epochs, device placement
@@ -38,6 +43,10 @@ padding it; evaluation is pure, so the logits are the same.
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+from dataclasses import asdict
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -188,18 +197,60 @@ class Trainer:
         bs = min(self.cfg.eval_batch_size, len(hit))
         return torch.stack([c.mean() for c in hit.split(bs)]).mean()
 
+    def _ckpt_fingerprint(self, tr_shape, te_shape) -> str:
+        """Hash of what decides a fit's trajectory given its data: the whole
+        FinetuneConfig, the max-norm rules, the head regex and the split
+        shapes (the JAX trainer's ``_ckpt_fingerprint``)."""
+        blob = json.dumps({
+            "cfg": asdict(self.cfg),
+            "maxnorm": [list(r[:2]) + [list(r[2])] for r in self.maxnorm_rules],
+            "head_regex": self.head_regex,
+            "train_shape": list(tr_shape),
+            "test_shape": list(te_shape),
+        }, sort_keys=True, default=str)
+        return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
     def fit(self, data, seed: Optional[int] = None,
-            init_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainResult:
+            init_params: Optional[Dict[str, torch.Tensor]] = None,
+            checkpoint_dir: Optional[str] = None) -> TrainResult:
         """``data`` = (tr_x, tr_y, te_x, te_y), arrays or tensors. The model
         is re-initialized from ``seed`` (default ``cfg.seed``);
         ``init_params`` (a possibly partial state_dict, e.g. pretrained
         weights) then replaces the matching parameters. Unknown keys raise.
         With the trainer's ``deterministic``, the fit runs under
-        ``torch.use_deterministic_algorithms(True)``."""
-        with deterministic_algorithms(self.deterministic):
-            return self._fit(data, seed, init_params)
+        ``torch.use_deterministic_algorithms(True)``.
 
-    def _fit(self, data, seed, init_params) -> TrainResult:
+        ``checkpoint_dir``: the state after each phase is saved there, and a
+        fit that finds phases saved resumes after the last one; its history
+        then holds the phases it ran (none: one NaN loss and the restored
+        model's test accuracy). A directory written under another
+        configuration or split shape raises ``ValueError``."""
+        with deterministic_algorithms(self.deterministic):
+            return self._fit(data, seed, init_params, checkpoint_dir)
+
+    def _phase_state(self, opt: torch.optim.Optimizer, gen: torch.Generator,
+                     dropout_gen: torch.Generator) -> dict:
+        """What a phase leaves for the next one, as a tree of tensors."""
+        names = {p: n for n, p in self.model.named_parameters()}
+        return {
+            "params": dict(self.model.state_dict()),
+            "opt": {names[p]: dict(st) for p, st in opt.state.items()},
+            "rng": {"batch": gen.get_state(), "dropout": dropout_gen.get_state()},
+        }
+
+    def _restore_phase_state(self, state: dict, opt: torch.optim.Optimizer,
+                             gen: torch.Generator, dropout_gen: torch.Generator) -> None:
+        self.model.load_state_dict({k: torch.from_numpy(v) for k, v in state["params"].items()})
+        params = dict(self.model.named_parameters())
+        saved = opt.state_dict()
+        index = {id(p): i for i, p in enumerate(opt.param_groups[0]["params"])}
+        saved["state"] = {index[id(params[n])]: {k: torch.from_numpy(v) for k, v in st.items()}
+                          for n, st in state.get("opt", {}).items()}
+        opt.load_state_dict(saved)
+        gen.set_state(torch.from_numpy(state["rng"]["batch"]))
+        dropout_gen.set_state(torch.from_numpy(state["rng"]["dropout"]))
+
+    def _fit(self, data, seed, init_params, checkpoint_dir) -> TrainResult:
         cfg = self.cfg
         tr_x, te_x = self._to_device(data[0]), self._to_device(data[2])
         tr_y = torch.as_tensor(np.asarray(data[1]).reshape(-1), dtype=torch.long, device=self.device)
@@ -207,7 +258,8 @@ class Trainer:
         n_train = tr_x.shape[0]
         seed = cfg.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed)  # init and batch order, on the CPU
-        set_generator(self.model, torch.Generator(device=self.device).manual_seed(seed))
+        dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
+        set_generator(self.model, dropout_gen)
         self.model.reset_parameters(gen)
         if init_params is not None:
             unexpected = self.model.load_state_dict(init_params, strict=False).unexpected_keys
@@ -216,10 +268,34 @@ class Trainer:
         opt = make_optimizer(self.model, cfg)
         bs = min(cfg.batch_size, n_train)
 
+        start_phase = 0
+        if checkpoint_dir is not None:
+            from eav_tpu_torch.core.checkpoint import load_pytree
+
+            fp = self._ckpt_fingerprint(tr_x.shape, te_x.shape)
+            fp_path = os.path.join(checkpoint_dir, "fingerprint.txt")
+            if os.path.exists(fp_path):
+                with open(fp_path) as f:
+                    saved_fp = f.read().strip()
+                if saved_fp != fp:
+                    raise ValueError(
+                        f"checkpoint_dir {checkpoint_dir} was written under another "
+                        f"configuration (fingerprint {saved_fp} != {fp}: FinetuneConfig, "
+                        "max-norm rules, head regex or split shapes changed); refusing to "
+                        "resume: name a fresh directory or delete the stale checkpoints")
+            for i in range(len(cfg.phases) - 1, -1, -1):
+                path = os.path.join(checkpoint_dir, f"phase{i}")
+                if os.path.exists(path + ".npz"):
+                    self._restore_phase_state(load_pytree(path), opt, gen, dropout_gen)
+                    start_phase = i + 1
+                    break
+
         hist = {"loss": [], "train_acc": [], "test_acc": []}
         epoch_logits = []
         te_logits = None
-        for phase in cfg.phases:
+        for phase_idx, phase in enumerate(cfg.phases):
+            if phase_idx < start_phase:
+                continue
             set_trainable(self.model, phase.freeze, self.head_regex)
             for group in opt.param_groups:
                 group["lr"] = phase.lr
@@ -248,8 +324,23 @@ class Trainer:
                 hist["test_acc"].append(self._test_acc(te_logits, te_y))
                 if cfg.keep_epoch_logits:
                     epoch_logits.append(te_logits)
+            if checkpoint_dir is not None:
+                from eav_tpu_torch.core.checkpoint import save_pytree
+
+                save_pytree(os.path.join(checkpoint_dir, f"phase{phase_idx}"),
+                            self._phase_state(opt, gen, dropout_gen))
+                if not os.path.exists(fp_path):
+                    with open(fp_path, "w") as f:
+                        f.write(fp + "\n")
         set_trainable(self.model, False)
-        history = {k: torch.stack(v).float().cpu().numpy() for k, v in hist.items()}
         params = {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
+        if not hist["loss"]:
+            # every phase was restored: the result of the restored model
+            outputs_test = self.predict(te_x)
+            acc = float((outputs_test.argmax(-1) == te_y.cpu().numpy()).mean())
+            history = {"loss": np.array([np.nan]), "train_acc": np.array([np.nan]),
+                       "test_acc": np.array([acc])}
+            return TrainResult(params, history, outputs_test, None)
+        history = {k: torch.stack(v).float().cpu().numpy() for k, v in hist.items()}
         kept = torch.stack(epoch_logits).float().cpu().numpy() if epoch_logits else None
         return TrainResult(params, history, te_logits.float().cpu().numpy(), kept)

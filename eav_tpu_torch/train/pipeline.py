@@ -15,7 +15,9 @@ the JAX package's keys, and read back through ``fast_npz_load``; logits are
 archived per subject when a logits directory is given (the vision ones
 trial-voted). The metrics row has the JAX package's keys. The fits run
 under torch's deterministic mode when the pipelines are built with
-``deterministic=True`` (``core/device.py``).
+``deterministic=True`` (``core/device.py``). ``task_fn`` is the sweep's
+task (``core/sweep.SweepRunner``), and ``prefetch`` loads the next task's
+split while the current one fits.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import threading
 import time
 from dataclasses import asdict
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -196,6 +199,9 @@ class ModalityPipelines:
         self.presets = presets or default_presets()
         self._trainers: Dict[str, Trainer] = {}  # one per preset, reused across subjects
         self._pretrained: dict = {}  # converted checkpoints (_pretrained_params)
+        # (modality, subject) -> a split on the device parked by ``prefetch``
+        self._prefetched: Dict[Tuple[str, int], Any] = {}
+        self._prefetch_lock = threading.Lock()
 
     def _trainer(self, preset_key: str, preset: PresetConfig) -> Trainer:
         """One trainer per preset; a model that freezes another set than the
@@ -335,7 +341,8 @@ class ModalityPipelines:
         """The EEG fit of one subject: EEGNet (``eeg``, the default) or the
         conformer (``eeg_conformer``)."""
         t0 = time.perf_counter()
-        data = self._load_split_eeg(subject, preset_key)
+        data = self._take_or_load(subject, preset_key,
+                                  lambda: self._load_split_eeg(subject, preset_key))
         load_s = time.perf_counter() - t0
         result, fit_s, archive_s = self._run(subject, preset_key, data)
         return self._finish(subject, preset_key, result, data[3],
@@ -357,7 +364,8 @@ class ModalityPipelines:
         (``frontend='scnn180'``, the ``audio_scnn`` preset)."""
         key = "audio" if frontend == "fbank" else "audio_scnn"
         t0 = time.perf_counter()
-        data = self._load_split_audio(subject, key, frontend)
+        data = self._take_or_load(subject, key,
+                                  lambda: self._load_split_audio(subject, key, frontend))
         load_s = time.perf_counter() - t0
         init = _pretrained_params(self.presets[key].finetune.model, NUM_CLASSES, self._pretrained)
         result, fit_s, archive_s = self._run(subject, key, data, init)
@@ -393,7 +401,8 @@ class ModalityPipelines:
         ResNetAttn (``vision_resnet``)."""
         key = preset_key
         t0 = time.perf_counter()
-        tr_f, tr_fy, te_f, te_fy, fps = self._load_split_vision(subject, key)
+        tr_f, tr_fy, te_f, te_fy, fps = self._take_or_load(
+            subject, key, lambda: self._load_split_vision(subject, key))
         load_s = time.perf_counter() - t0
         init = _pretrained_params(self.presets[key].finetune.model, NUM_CLASSES, self._pretrained)
         trainer = self._trainer(key, self.presets[key])
@@ -409,6 +418,43 @@ class ModalityPipelines:
         return self._finish(subject, key, result, te_fy, vote_group=fps,
                             fit_seconds=fit_s, n_train=len(tr_f),
                             load_seconds=load_s, archive_seconds=archive_s)
+
+    # the split loader of each modality, and its arguments after the subject
+    _PREFETCH_LOADERS = {
+        "eeg": ("_load_split_eeg", ("eeg",)),
+        "eeg_conformer": ("_load_split_eeg", ("eeg_conformer",)),
+        "audio": ("_load_split_audio", ("audio", "fbank")),
+        "audio_scnn": ("_load_split_audio", ("audio_scnn", "scnn180")),
+        "vision": ("_load_split_vision", ("vision",)),
+        "vision_resnet": ("_load_split_vision", ("vision_resnet",)),
+    }
+
+    def prefetch(self, subject: int, modality: str) -> None:
+        """Load a coming task's split onto the device and park it for its
+        ``run_*`` to take. The sweep runner calls this on a thread while the
+        previous task fits. Best-effort: a failure is printed, and the task
+        loads inline and journals its own error."""
+        spec = self._PREFETCH_LOADERS.get(modality)
+        if spec is None:  # fusion: its load is a few small arrays
+            return
+        try:
+            data = getattr(self, spec[0])(subject, *spec[1])
+        except Exception as e:  # noqa: BLE001 — best-effort by design
+            print(f"[prefetch] subject{subject:02d} {modality} failed ({e}); "
+                  "task will load inline")
+            return
+        with self._prefetch_lock:
+            self._prefetched[(modality, subject)] = data
+            # the runner keeps at most two parked (the running task's, racing
+            # its take, and the next one); anything older is a task that
+            # failed before it took its split: evict the oldest
+            while len(self._prefetched) > 2:
+                self._prefetched.pop(next(iter(self._prefetched)))
+
+    def _take_or_load(self, subject: int, modality: str, loader):
+        with self._prefetch_lock:
+            data = self._prefetched.pop((modality, subject), None)
+        return loader() if data is None else data
 
     def _stack_splits(self, subjects: Sequence[int], modality: str):
         """The EAV splits of ``subjects`` stacked on a subject axis (vision:

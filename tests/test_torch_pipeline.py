@@ -211,7 +211,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert len(names) >= 40  # every module was imported
     assert {"eav_tpu_torch.parallel.subject", "eav_tpu_torch.models.fusion",
             "eav_tpu_torch.models.scnn_audio", "eav_tpu_torch.models.resnet_attn",
-            "eav_tpu_torch.models.hf_import"} <= set(names)
+            "eav_tpu_torch.models.hf_import", "eav_tpu_torch.models.mtcnn",
+            "eav_tpu_torch.core.sweep", "eav_tpu_torch.core.checkpoint"} <= set(names)
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):
@@ -220,6 +221,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatc
     from eav_tpu_torch.ingest.video import DataLoadVision
     from eav_tpu_torch.ingest.vision import vit_pixel_values
     from eav_tpu_torch.models.ast import ast_tiny
+    from eav_tpu_torch.models.mtcnn import MTCNNDetector, PNet, RNet, ONet, default_face_cropper
     from eav_tpu_torch.train.loop import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -243,6 +245,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatc
         DataLoadEEG(1, parent_directory=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         ModalityPipelines(str(tmp_path), presets={"eeg": _eeg_preset("eegnet")}).run_eeg(1)
+    monkeypatch.delenv("EAV_TPU_MTCNN_WEIGHTS", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        default_face_cropper(VisionPreprocConfig(face_detection=True))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        MTCNNDetector(*(net().state_dict() for net in (PNet, RNet, ONet)))
 
 
 def _eeg_preset(model):

@@ -1,6 +1,11 @@
 """The port's vision ingest and trial votes against the JAX package's, on the
-same numpy inputs: pixel values, frame flattening, center crop, the fast npz
-reader, ``DataLoadVision`` on cv2-written clips, and the per-trial votes."""
+same numpy inputs: pixel values, frame flattening, center crop (and its
+cv2-free resize against cv2 itself), the fast npz reader, ``DataLoadVision``
+on cv2-written clips with and without MTCNN weights, and the per-trial
+votes."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -49,6 +54,28 @@ def test_center_crop_and_resize_match_jax(rng):
     frames = rng.integers(0, 256, size=(3, 48, 64, 3), dtype=np.uint8)
     np.testing.assert_array_equal(center_crop_resize(frames, 56), jax_ccr(frames, 56))
     np.testing.assert_array_equal(resize_frames(frames, 32), jax_resize(frames, 32))
+
+
+@pytest.mark.parametrize("h,w,size", [
+    (480, 640, 56), (240, 320, 56), (60, 52, 24), (270, 480, 224), (112, 112, 56),
+    (48, 64, 32), (40, 40, 56), (33, 47, 56), (7, 9, 24)])
+def test_center_crop_and_resize_equal_cv2_without_cv2(rng, monkeypatch, h, w, size):
+    """Bit for bit equal to ``cv2.resize`` (INTER_LINEAR), downscales (an
+    exact 2x one, which cv2 computes as INTER_AREA, among them) and upscales
+    alike, with cv2 unimportable while the port resizes."""
+    cv2 = pytest.importorskip("cv2")
+    from eav_tpu_torch.ingest.video import center_crop_resize, resize_frames
+
+    frames = rng.integers(0, 256, size=(3, h, w, 3), dtype=np.uint8)
+    s = min(h, w)
+    y0, x0 = (h - s) // 2, (w - s) // 2
+    want_crop = np.stack([cv2.resize(f[y0 : y0 + s, x0 : x0 + s], (size, size)) for f in frames])
+    want_resize = np.stack([cv2.resize(f, (size, size)) for f in frames])
+    monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 now raises
+    with pytest.raises(ImportError):
+        import cv2  # noqa: F401, F811
+    np.testing.assert_array_equal(center_crop_resize(frames, size), want_crop)
+    np.testing.assert_array_equal(resize_frames(frames, size), want_resize)
 
 
 def test_fast_npz_load_matches_jax(tmp_path, rng):
@@ -108,17 +135,84 @@ def test_dataload_vision_matches_jax(tmp_path, monkeypatch, face_detection):
     np.testing.assert_array_equal(y, yj)
 
 
-def test_dataload_vision_refuses_mtcnn_weights(tmp_path, monkeypatch):
-    """With MTCNN weights named, the JAX package would detect faces: the port
-    raises instead of cropping otherwise. A given face_cropper still runs."""
+def _face_clips(root, emotions, seed=0):
+    """Speaking clips of a drawn face (scripts/convert_mtcnn.py's fixture at
+    60 x 80) moving a few pixels from frame to frame."""
+    import cv2
+
+    face = _convert_mtcnn().synthetic_face_image(60, 80)
+    vdir = root / "subject01" / "Video"
+    vdir.mkdir(parents=True)
+    for i, emo in enumerate(emotions):
+        writer = cv2.VideoWriter(str(vdir / f"subject_01_Speaking_{i}_{emo}_.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), 30, (80, 60))
+        for j in range(30):
+            writer.write(np.roll(face, (j % 5 - 2, 2 * (j % 4) - 3), axis=(0, 1))[..., ::-1])
+        writer.release()
+
+
+def _convert_mtcnn():
+    import importlib.util
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "convert_mtcnn", os.path.join(repo, "scripts", "convert_mtcnn.py"))
+    m = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(m)
+    return m
+
+
+def _mtcnn_pt_files(path):
+    """Seeded facenet-layout P/R/O-Net weights (fan-in-scaled normals) as
+    ``{p,r,o}net.pt`` under ``path``."""
+    from eav_tpu_torch.models import mtcnn
+
+    for seed, (net, cls) in enumerate(zip(mtcnn.NETS, (mtcnn.PNet, mtcnn.RNet, mtcnn.ONet))):
+        g = torch.Generator().manual_seed(seed + 1)
+        sd = {k: torch.randn(v.shape, generator=g)
+              * (1.0 / np.sqrt(np.prod(v.shape[1:])) if v.ndim >= 2 else 0.25)
+              for k, v in cls().state_dict().items()}
+        torch.save(sd, path / f"{net}.pt")
+
+
+def test_dataload_vision_with_mtcnn_weights_matches_jax(tmp_path, monkeypatch):
+    """``EAV_TPU_MTCNN_WEIGHTS`` naming facenet weights: both packages crop
+    faces with MTCNN (at the JAX tests' thresholds, where random weights
+    find faces), and the port's crops equal JAX's within 1."""
+    pytest.importorskip("cv2")
+    from eav_tpu.ingest.video import DataLoadVision as JaxDataLoadVision
+    from eav_tpu_torch.ingest.video import DataLoadVision, center_crop_resize
+
+    root = tmp_path / "EAV"
+    _face_clips(root, EMOTIONS[:2])
+    weights = tmp_path / "mtcnn"
+    weights.mkdir()
+    _mtcnn_pt_files(weights)
+    monkeypatch.setenv("EAV_TPU_MTCNN_WEIGHTS", str(weights))
+    kw = dict(frame_stride=6, max_frames=30, frames_per_sample=5, face_detection=True,
+              face_image_size=24, mtcnn_thresholds=(0.2, 0.05, 0.05))
+    x, y = DataLoadVision(1, str(root), VisionPreprocConfig(**kw), device="cpu").process()
+    xj, yj = JaxDataLoadVision(1, str(root), JaxVisionPreprocConfig(**kw)).process()
+    assert x.shape == xj.shape == (2, 5, 24, 24, 3) and x.dtype == np.uint8
+    assert np.abs(x.astype(int) - xj.astype(int)).max() <= 1
+    np.testing.assert_array_equal(y, yj)
+    # the crops are MTCNN's, not the center crop the loader takes without weights
+    monkeypatch.delenv("EAV_TPU_MTCNN_WEIGHTS")
+    x0, _ = DataLoadVision(1, str(root), VisionPreprocConfig(**kw), device="cpu").process()
+    assert (x0 != x).any(axis=(2, 3, 4)).all()
+
+
+def test_dataload_vision_raises_on_mtcnn_weights_it_cannot_load(tmp_path, monkeypatch):
+    """A directory named by ``EAV_TPU_MTCNN_WEIGHTS`` without weights raises
+    (the JAX package center-crops); a given face_cropper runs regardless."""
     pytest.importorskip("cv2")
     from eav_tpu_torch.ingest.video import DataLoadVision
 
     root = tmp_path / "EAV"
     _clips(root, EMOTIONS[:1])
-    monkeypatch.setenv("EAV_TPU_MTCNN_WEIGHTS", str(tmp_path))
+    monkeypatch.setenv("EAV_TPU_MTCNN_WEIGHTS", str(tmp_path / "EAV"))
     cfg = VisionPreprocConfig(max_frames=60, frames_per_sample=5, face_detection=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(FileNotFoundError, match="pnet"):
         DataLoadVision(1, str(root), cfg, device="cpu").process()
     crop = lambda f: np.zeros((len(f), 8, 8, 3), np.uint8)  # noqa: E731
     x, _ = DataLoadVision(1, str(root), cfg, face_cropper=crop, device="cpu").process()
