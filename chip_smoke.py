@@ -107,7 +107,29 @@ Phases, each of which fails the run on error:
    twice (``max_retries`` 1), a second runner finds nothing pending, the
    artifacts reload equal, ``aggregate`` equals numpy's; ``run_batched``
    over ``run_stacked`` at group size 2 bisects the group holding the
-   failing subject.
+   failing subject;
+22. the CLI (``eav_tpu_torch.cli.main`` in this process, so the JAX block
+   and the launch counts hold): ``presets`` (and once as ``python -m
+   eav_tpu_torch.cli presets``); ``verify-data --no-probe`` over eeg and
+   audio (the card's machine has no video decoder) exits 0 on the data root
+   and 1 on a copy with a label file that is not one-hot; ``run`` over
+   eeg, eeg_conformer, audio, audio_scnn, vision and fusion for subjects
+   1-3 with ``--subject-parallel 8 --chip-parallel 1 --checkpoint
+   --deterministic``, epochs cut by a JSON ``--config`` and ``--set`` (AST-
+   and ViT-base at full width, 1 frozen + 1 unfrozen epoch): the data root
+   links phase 10's EEG subject, 100 wavs of 20 s written as phase 5 writes
+   its ten (400 segments, the EEG's count, so that fusion's archives align)
+   and a frame cache as phase 8's, 400 trials of 5 crops (fewer frames a
+   trial, to cut time; vision reads the cache only), subjects 2-3 linked to
+   subject 1. K1-K3's counts must rise; every task done, the farmed rows on
+   ``cuda:0``, one farm summary, the stacked EEG, conformer and SCNN groups
+   at size 3, finite fusion rows; the deterministic mode on in every
+   forward and off after; subject 1's EEGNet logits equal a direct
+   ``run_stacked([1, 2, 3], "eeg")`` bit for bit (the CLI stacks EEGNet); a
+   second run journals nothing; ``aggregate`` equals numpy; ``run
+   --profile`` writes a trace naming ``flash_fwd_wgmma``; an unknown
+   ``--set`` field and ``--chip-parallel 2`` on one card are refused; the
+   SCNN's stacked step at S 2, 4, 8, 16 and 42 against its serial step.
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
 float32 means float32 throughout the run. ``CUBLAS_WORKSPACE_CONFIG`` is set
@@ -2129,6 +2151,262 @@ def run_sweep_phase(card: str, eeg_root: str) -> None:
             f"{[r['wall_clock_s'] for r in rows]}")
 
 
+# -----------------------------------------------------------------------------
+# 22. the CLI: python -m eav_tpu_torch.cli on the card
+# -----------------------------------------------------------------------------
+
+CLI_SUBJECTS = "1-3"
+CLI_DEVICE = "cuda:0"  # the farm's one worker
+CLI_TRACED = "flash_fwd_wgmma"  # K1's kernel, which --profile's trace must name
+# epochs cut through a --config file (JSON: the card's machine has no
+# PyYAML) and --set; vision keeps 5 frames a trial (below)
+CLI_CONFIG = {
+    "eeg": {"finetune": {"phases": {"0": {"epochs": 2}}}},
+    "eeg_conformer": {"finetune": {"phases": {"0": {"epochs": 2}}}},
+    "audio_scnn": {"finetune": {"phases": {"0": {"epochs": 2}}}},
+    "vision": {"vision": {"frames_per_sample": 5}, "finetune": {"vote_group": 5}},
+    "fusion": {"finetune": {"phases": {"0": {"epochs": 20}}}},
+}
+CLI_SET = ["audio.finetune.phases.0.epochs=1", "audio.finetune.phases.1.epochs=1",
+           "vision.finetune.phases.0.epochs=1", "vision.finetune.phases.1.epochs=1"]
+
+
+def cli_call(argv) -> tuple:
+    """``eav_tpu_torch.cli.main(argv)`` in this process -> (rc, its stdout)."""
+    import contextlib
+    import io
+
+    from eav_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, out.getvalue()
+
+
+def cli_must_fail(argv, what: str) -> str:
+    """Raises unless the CLI refuses ``argv`` (a non-zero exit or an error)."""
+    try:
+        rc, _ = cli_call(argv)
+    except SystemExit as e:
+        if e.code in (0, None):
+            raise AssertionError(f"{what}: exited 0") from None
+        return f"exit {str(e.code)[:60]!r}"
+    except Exception as e:  # noqa: BLE001 — the refusal is the expected result
+        return f"{type(e).__name__}: {str(e)[:60]}"
+    if rc == 0:
+        raise AssertionError(f"the CLI accepted {what}")
+    return f"rc {rc}"
+
+
+def cli_data_root(root: str, eeg_root: str, presets) -> None:
+    """``root``/EAV and ``root``/cache for the CLI: phase 10's EEG subject
+    (links to its .mat files), 100 wavs of 20 s as phase 5 writes them (400
+    segments, as many as the EEG's chunks, so that fusion aligns), subjects
+    2-3 links to subject 1; and phase 8's kind of frame cache under the
+    vision preset's key, 400 trials of 5 56x56 crops (subject 1's, linked
+    for 2-3). The card's machine has no video decoder, so vision reads the
+    cache only; the EAV tree holds no Video folder."""
+    from eav_tpu_torch.train.pipeline import _cfg_hash
+
+    eav, cache = os.path.join(root, "EAV"), os.path.join(root, "cache")
+    os.makedirs(cache)
+    src = os.path.join(eeg_root, "EAV", "subject01", "EEG")
+    for s in (1, 2, 3):
+        name = f"subject{s:02d}"
+        os.makedirs(os.path.join(eav, name, "EEG"))
+        for suffix in ("eeg.mat", "eeg_label.mat"):
+            os.symlink(os.path.join(src, f"subject01_{suffix}"),
+                       os.path.join(eav, name, "EEG", f"{name}_{suffix}"))
+        if s > 1:
+            os.symlink(os.path.join(eav, "subject01", "Audio"), os.path.join(eav, name, "Audio"))
+    write_subject(eav, 1, files=100)
+    write_frame_cache(cache, presets["vision"], 1, trials=400)
+    key = _cfg_hash(presets["vision"].vision)
+    for s in (2, 3):
+        os.symlink(os.path.join(cache, f"s01_vis_{key}.npz"),
+                   os.path.join(cache, f"s{s:02d}_vis_{key}.npz"))
+
+
+def run_cli_phase(card: str, eeg_root: str, scnn_serial_ms: float) -> None:
+    """The port's CLI driven in this process (``eav_tpu_torch.cli.main``):
+    ``presets`` (and once as ``python -m``), ``verify-data --no-probe``
+    (clean root 0, a corrupted label file 1), the sweep with the farm of one
+    worker, a second run that finds nothing pending, ``aggregate`` against
+    numpy, and the refusals; then the SCNN's stacked step at S 2 to 42 for
+    its stack cap."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.cli import _presets
+    from eav_tpu_torch.core.config import SweepConfig
+    from eav_tpu_torch.core.sweep import SweepRunner, _read_jsonl
+    from eav_tpu_torch.ops import attention as A
+    from eav_tpu_torch.train.pipeline import ModalityPipelines, default_presets
+
+    t_phase = time.perf_counter()
+    rc, out = cli_call(["presets"])
+    proc = subprocess.run([sys.executable, "-m", "eav_tpu_torch.cli", "presets"], cwd=HERE,
+                          capture_output=True, text=True, timeout=300)
+    for text, how in ((out, "in process"), (proc.stdout, "python -m")):
+        listed = {line.split()[0] for line in text.splitlines() if line.strip()}
+        if not set(default_presets()) <= listed:
+            raise AssertionError(f"presets ({how}) lists {sorted(listed)}")
+    if rc != 0 or proc.returncode != 0:
+        raise AssertionError(f"presets exited {rc} / {proc.returncode}: {proc.stderr[-500:]}")
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg_path = os.path.join(root, "overrides.json")
+        with open(cfg_path, "w") as f:
+            json.dump(CLI_CONFIG, f)
+        overrides = ["--config", cfg_path] + [a for kv in CLI_SET for a in ("--set", kv)]
+        presets = _presets(argparse.Namespace(config=cfg_path, set=CLI_SET))
+        t0 = time.perf_counter()
+        cli_data_root(root, eeg_root, presets)
+        eav, cache, out_dir = (os.path.join(root, d) for d in ("EAV", "cache", "out"))
+        log(f"CLI data root (EEG links, 100 wavs of 20 s, a 400 x 5 frame cache, subjects 2-3 "
+            f"linked): {time.perf_counter() - t0:.1f} s")
+
+        vd = ["verify-data", "--data-root", eav, "--subjects", CLI_SUBJECTS,
+              "--modalities", "eeg,audio", "--no-probe"]
+        rc_clean, _ = cli_call(vd)
+        bad = os.path.join(root, "EAV_bad")
+        os.makedirs(os.path.join(bad, "subject01", "EEG"))
+        for name in ("subject02", "subject03"):
+            os.symlink(os.path.join(eav, name), os.path.join(bad, name))
+        os.symlink(os.path.join(eav, "subject01", "Audio"), os.path.join(bad, "subject01", "Audio"))
+        os.symlink(os.path.join(eav, "subject01", "EEG", "subject01_eeg.mat"),
+                   os.path.join(bad, "subject01", "EEG", "subject01_eeg.mat"))
+        from eav_tpu_torch.ingest import mat5
+
+        label = mat5.loadmat(os.path.join(eav, "subject01", "EEG", "subject01_eeg_label.mat"))
+        label = label["label"].copy()
+        label[:, 0] = 0  # trial 0 is no longer one-hot
+        mat5.savemat(os.path.join(bad, "subject01", "EEG", "subject01_eeg_label.mat"),
+                     {"label": label})
+        rc_bad, bad_out = cli_call(["verify-data", "--data-root", bad, *vd[3:]])
+        if (rc_clean, rc_bad) != (0, 1) or "one-hot" not in bad_out:
+            raise AssertionError(f"verify-data exits {rc_clean} (clean), {rc_bad} (corrupted)")
+
+        run = ["run", "--data-root", eav, "--subjects", CLI_SUBJECTS, "--modalities",
+               "eeg,eeg_conformer,audio,audio_scnn,vision,fusion", "--out", out_dir,
+               "--cache-dir", cache, "--subject-parallel", "8", "--chip-parallel", "1",
+               "--checkpoint", "--deterministic", *overrides]
+        flags = []
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            lambda m, a: flags.append(torch.are_deterministic_algorithms_enabled()))
+        A.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc, _ = cli_call(run)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in (A.flash_fwd, A.flash_dkv, A.flash_dq)}
+        if rc != 0 or not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"cli run exited {rc}; launches of K1-K3 {launches}")
+        if not (flags and all(flags)) or torch.are_deterministic_algorithms_enabled():
+            raise AssertionError(f"the deterministic mode: {sum(flags)} of {len(flags)} forwards "
+                                 f"on, {torch.are_deterministic_algorithms_enabled()} after")
+        cfg = SweepConfig(journal_path=os.path.join(out_dir, "journal.jsonl"),
+                          metrics_path=os.path.join(out_dir, "metrics.jsonl"),
+                          subjects=(1, 2, 3), modalities=(
+                              "eeg", "eeg_conformer", "audio", "audio_scnn", "vision", "fusion"))
+        runner = SweepRunner(cfg, None)
+        state, rows = runner.journal_state(), _read_jsonl(cfg.metrics_path)
+        if len(state) != 18 or any(r["status"] != "done" for r in state.values()):
+            raise AssertionError(f"journal: {[(t, r['status']) for t, r in state.items()]}")
+        farmed = [r for r in rows if r.get("modality") in ("audio", "vision")]
+        if len(farmed) != 6 or any(r.get("device") != CLI_DEVICE for r in farmed):
+            raise AssertionError(f"farmed rows' devices {[r.get('device') for r in farmed]}")
+        summary = [r for r in rows if r.get("event") == "farm_summary"]
+        groups = {r["modality"]: r.get("group_size") for r in rows
+                  if r.get("modality") in ("eeg", "eeg_conformer", "audio_scnn")}
+        fusion = [r for r in rows if r.get("modality") == "fusion"]
+        if len(summary) != 1 or summary[0]["n_tasks"] != 6 or set(groups.values()) != {3}:
+            raise AssertionError(f"farm summary {summary}, stacked group sizes {groups}")
+        if len(fusion) != 3 or not all(np.isfinite([r["accuracy"], r["weighted_f1"]]).all()
+                                       for r in fusion):
+            raise AssertionError(f"fusion rows {fusion}")
+        log(f"cli run (eeg, eeg_conformer, audio_scnn stacked at S 3; audio: ast_finetune "
+            f"AST-base bf16 and vision: vit_finetune ViT-base, each 1 frozen + 1 unfrozen "
+            f"epoch, farmed on {CLI_DEVICE}; fusion; subjects {CLI_SUBJECTS}, 280 train / 120 test "
+            f"a modality, --deterministic --checkpoint): {wall:.1f} s; farm makespan "
+            f"{summary[0]['makespan_s']} s, busy {summary[0]['busy_s']} s over "
+            f"{summary[0]['n_tasks']} farmed tasks; seconds a task "
+            f"{ {r['task'][10:]: r['wall_clock_s'] for r in state.values() if r['task'][:9] == 'subject01'} }; "
+            f"launches {launches}; the deterministic mode on in {len(flags)} forwards and off "
+            f"after; fusion accuracy {[r['accuracy'] for r in fusion]} on {card}")
+
+        # the CLI adds orchestration, not math: the stacked EEGNet group it ran
+        direct = ModalityPipelines(eav, cache_dir=cache, logits_dir=os.path.join(root, "direct"),
+                                   presets=presets, device="cuda", deterministic=True)
+        direct.run_stacked([1, 2, 3], "eeg")
+        for split in ("train", "test"):
+            got = np.load(os.path.join(out_dir, "logits", f"s01_eeg_{split}.npy"))
+            want = np.load(os.path.join(root, "direct", f"s01_eeg_{split}.npy"))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"subject 1's EEGNet {split} logits differ from a direct "
+                                     f"run_stacked: max {np.abs(got - want).max()}")
+
+        n_journal = len(_read_jsonl(cfg.journal_path))
+        if runner.pending_tasks():
+            raise AssertionError(f"pending after the run: {runner.pending_tasks()}")
+        rc, _ = cli_call(run)
+        if rc != 0 or len(_read_jsonl(cfg.journal_path)) != n_journal:
+            raise AssertionError("a second run journaled new records")
+
+        rc, agg_out = cli_call(["aggregate", "--out", out_dir])
+        printed = json.loads(agg_out[agg_out.index("{"):])
+        latest = {}
+        for r in rows:
+            if r.get("accuracy") is not None:
+                latest[(r["subject"], r["modality"])] = r
+        for mod, d in printed.items():
+            acc = [r["accuracy"] for (s, m), r in sorted(latest.items()) if m == mod]
+            if (d != runner.aggregate()[mod] or d["n_subjects"] != 3
+                    or not np.isclose(d["mean_accuracy"], np.mean(acc), rtol=1e-12, atol=0)
+                    or not np.isclose(d["std_accuracy"], np.std(acc), rtol=1e-12, atol=1e-15)):
+                raise AssertionError(f"aggregate {mod}: {d} against numpy over {acc}")
+        log("cli: presets (in process and python -m), verify-data --no-probe (clean 0, a "
+            "corrupted label file 1), subject 1's EEGNet logits equal a direct "
+            "run_stacked([1, 2, 3]) bit for bit, a second run journals nothing, aggregate "
+            f"equals numpy over {len(printed)} modalities")
+
+        prof_root, trace_dir = os.path.join(root, "prof"), os.path.join(root, "trace")
+        write_subject(os.path.join(prof_root, "EAV"))
+        t0 = time.perf_counter()
+        rc, _ = cli_call(["run", "--data-root", os.path.join(prof_root, "EAV"), "--subjects", "1",
+                          "--modalities", "audio", "--out", os.path.join(prof_root, "out"),
+                          "--profile", trace_dir, "--set", "audio.split.h_idx=6", *overrides])
+        traces = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+        named = any(CLI_TRACED in open(os.path.join(trace_dir, t)).read() for t in traces)
+        if rc != 0 or not named:
+            raise AssertionError(f"--profile: rc {rc}, traces {traces}, {CLI_TRACED} named: "
+                                 f"{named}")
+        size = sum(os.path.getsize(os.path.join(trace_dir, t)) for t in traces)
+        refusals = [
+            cli_must_fail([*run[:8], os.path.join(root, "x"), "--set",
+                           "eeg.split.no_such_field=1"], "an unknown field"),
+            cli_must_fail([*run[:8], os.path.join(root, "y"), "--chip-parallel", "2"],
+                          "--chip-parallel 2 on one card"),
+        ]
+        log(f"cli run --profile (audio, subject 1, 30 / 10 segments): "
+            f"{time.perf_counter() - t0:.1f} s, a {size / 2**20:.1f} MiB Chrome trace naming "
+            f"{CLI_TRACED}; refused: an unknown --set field ({refusals[0]}), "
+            f"--chip-parallel 2 ({refusals[1]})")
+
+    for size in (2, 4, 8, 16, 42):  # the SCNN's stack cap (cli._STACK_CAPS)
+        ms, _ = time_stacked_step(card, "scnn_audio", size, "scnn_audio, bs 64 a subject, float32")
+        log(f"  scnn_audio S {size}: {ms / size:.3f} ms a subject-step against the serial "
+            f"step's {scnn_serial_ms:.3f} ms ({scnn_serial_ms * size / ms:.2f}x)")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import tempfile
 
@@ -2234,7 +2512,8 @@ def main() -> int:
         mark("17. checkpoint import")
         check_scnn_frontend(card)
         run_scnn_path(card)
-        time_train_step(card, "scnn_audio", "SCNN (scnn_audio), bs 64, 180-d features, float32")
+        scnn_ms = time_train_step(card, "scnn_audio",
+                                  "SCNN (scnn_audio), bs 64, 180-d features, float32")
         mark("18. scnn_audio")
         check_resnet_forward(card)
         run_resnet_path(card, check_resnet_import(card, ckpt_root))
@@ -2248,6 +2527,8 @@ def main() -> int:
     mark("20. MTCNN")
     run_sweep_phase(card, eeg_root.name)
     mark("21. sweep")
+    run_cli_phase(card, eeg_root.name, scnn_ms)
+    mark("22. CLI")
     eeg_root.cleanup()
 
     kernels = []

@@ -6,14 +6,15 @@ A copy of ``eav_tpu/core/config.py``'s dataclasses and presets, with the same
 field names and defaults. ``EEGPreprocConfig``, ``AudioPreprocConfig`` and
 ``VisionPreprocConfig`` are copied whole, so their hashes (the cache keys)
 equal the JAX package's. ``model_kwargs`` maps the presets' dtype names to
-torch dtypes. The ``--set`` / ``--config`` overrides are not ported yet.
+torch dtypes. ``apply_overrides`` and ``load_override_file`` are the CLI's
+``--set`` / ``--config`` field overrides, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -421,3 +422,110 @@ def model_kwargs(preset: PresetConfig) -> dict:
         if key in kw:
             kw[key] = torch_dtype(kw[key])
     return kw
+
+
+# -----------------------------------------------------------------------------
+# Field-level overrides (the CLI's --set / --config)
+# -----------------------------------------------------------------------------
+
+
+def parse_override_value(s: str) -> Any:
+    """Literal-eval the value when possible ('5e-4' -> 0.0005, '(3, 50)' ->
+    tuple, 'true'/'True' -> bool, 'none'/'null' -> None), else keep the raw
+    string."""
+    import ast
+
+    if s.lower() in ("true", "false"):
+        return s.lower() == "true"
+    if s.lower() in ("none", "null"):
+        return None
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
+def _set_path(obj: Any, parts: Sequence[str], value: Any) -> Any:
+    """Immutable deep-set along a dotted path through frozen dataclasses,
+    tuples/lists (integer components) and dicts."""
+    if not parts:
+        return value
+    head, rest = parts[0], parts[1:]
+    if dataclasses.is_dataclass(obj):
+        names = {f.name for f in dataclasses.fields(obj)}
+        if head not in names:
+            raise KeyError(
+                f"{type(obj).__name__} has no field {head!r}; available: {sorted(names)}")
+        return dataclasses.replace(obj, **{head: _set_path(getattr(obj, head), rest, value)})
+    if isinstance(obj, (tuple, list)):
+        items = list(obj)
+        idx = int(head)
+        items[idx] = _set_path(items[idx], rest, value)
+        return type(obj)(items) if isinstance(obj, tuple) else items
+    if isinstance(obj, dict):
+        out = dict(obj)
+        out[head] = _set_path(obj.get(head), rest, value) if rest else value
+        return out
+    raise KeyError(f"cannot descend into {type(obj).__name__} at {head!r}")
+
+
+def override_preset(preset: PresetConfig, path: str, value: Any) -> PresetConfig:
+    """One override, e.g. ``override_preset(p, 'finetune.phases.0.lr', 1e-4)``."""
+    return _set_path(preset, path.split("."), value)
+
+
+def apply_overrides(presets: Dict[str, PresetConfig], overrides) -> Dict[str, PresetConfig]:
+    """Apply ``modality.field.path=value`` overrides to a preset dict, e.g.
+    ``audio.finetune.phases.0.epochs=2`` or ``eeg.split.h_idx=40``; the
+    first component selects the preset key. ``overrides``: ``path=value``
+    strings (``--set``) or a ``{path: value}`` mapping
+    (``load_override_file``). String values are parsed as ``--set`` values
+    are (YAML reads '1e-3' as a string)."""
+    if isinstance(overrides, dict):
+        items = list(overrides.items())
+    else:
+        items = []
+        for ov in overrides:
+            if "=" not in ov:
+                raise ValueError(f"override {ov!r} is not of the form path=value")
+            path, _, raw = ov.partition("=")
+            items.append((path.strip(), parse_override_value(raw.strip())))
+    out = dict(presets)
+    for path, value in items:
+        if isinstance(value, str):
+            value = parse_override_value(value)
+        parts = str(path).split(".")
+        if parts[0] not in out:
+            raise KeyError(f"unknown preset key {parts[0]!r}; available: {sorted(out)}")
+        out[parts[0]] = _set_path(out[parts[0]], parts[1:], value)
+    return out
+
+
+def _flatten_override_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        p = f"{prefix}.{k}" if prefix else f"{k}"
+        if isinstance(v, dict):
+            flat.update(_flatten_override_tree(v, p))
+        else:
+            flat[p] = v
+    return flat
+
+
+def load_override_file(path: str) -> Dict[str, Any]:
+    """A YAML override file (JSON where PyYAML is not installed) as flat
+    ``path -> value`` pairs, e.g. ``{"audio": {"finetune": {"phases": {"0":
+    {"epochs": 2}}}}}`` -> ``{"audio.finetune.phases.0.epochs": 2}``."""
+    import json
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        import yaml  # type: ignore
+    except ImportError:
+        tree = json.loads(text)
+    else:
+        tree = yaml.safe_load(text)
+    if not isinstance(tree, dict):
+        raise ValueError(f"override file {path} must contain a mapping")
+    return _flatten_override_tree(tree)

@@ -10,6 +10,7 @@ raises: nothing falls back to the CPU on its own.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator
 
 import torch
@@ -25,21 +26,39 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+# ``torch.use_deterministic_algorithms`` is one flag for the whole process,
+# while the farm's workers fit on threads of their own: the flag is set by
+# the first holder to enter and restored by the last to leave.
+_mode_lock = threading.Lock()
+_mode_holders = 0
+_mode_before = (False, False)
+
+
 @contextlib.contextmanager
 def deterministic_algorithms(on: bool = True) -> Iterator[None]:
     """With ``on``, the block runs under ``torch.use_deterministic_algorithms
-    (True)``, and the process's earlier setting is restored on exit. An op
-    without a deterministic CUDA kernel then raises (no ``warn_only``).
-    cuBLAS is deterministic only with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (or
-    ``:16:8``) in the environment before the process's first cuBLAS call;
-    without it, torch raises at the first product on the card."""
+    (True)``. Blocks may nest and overlap across threads: the first to enter
+    sets the mode, and the process's earlier setting comes back only when
+    the last one leaves, so one thread's fit never turns the mode off under
+    another's. An op without a deterministic CUDA kernel then raises (no
+    ``warn_only``). cuBLAS is deterministic only with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (or ``:16:8``) in the environment
+    before the process's first cuBLAS call; without it, torch raises at the
+    first product on the card."""
+    global _mode_holders, _mode_before
     if not on:
         yield
         return
-    before = (torch.are_deterministic_algorithms_enabled(),
-              torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True)
+    with _mode_lock:
+        if _mode_holders == 0:
+            _mode_before = (torch.are_deterministic_algorithms_enabled(),
+                            torch.is_deterministic_algorithms_warn_only_enabled())
+            torch.use_deterministic_algorithms(True)
+        _mode_holders += 1
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        with _mode_lock:
+            _mode_holders -= 1
+            if _mode_holders == 0:
+                torch.use_deterministic_algorithms(_mode_before[0], warn_only=_mode_before[1])

@@ -1,6 +1,6 @@
-"""The journaled subject x modality sweep, the port of ``eav_tpu/core/sweep.py``
-(its serial and batched paths; the farm of ``run_farmed`` waits for
-``parallel/farm.py``).
+"""The journaled subject x modality sweep, the port of ``eav_tpu/core/sweep.py``:
+the serial path (``run``), the batched one (``run_batched``) and the task
+farm over device-bound workers (``run_farmed``, ``parallel/farm.py``).
 
 - a per-task journal (JSONL): done/failed state, attempts, wall-clock; a
   new run resumes by skipping completed tasks and retrying failed ones up to
@@ -11,7 +11,9 @@
 - task functions are pluggable, so tests run the machinery on stubs.
 
 The records have the JAX package's keys and values, so either package
-resumes or aggregates the other's journal.
+resumes or aggregates the other's journal. Every journal and metrics append
+and every update of the shared state runs under the runner's log lock: the
+farm's workers journal from threads of their own.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import threading
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,6 +38,16 @@ class TaskResult:
 
 
 TaskFn = Callable[[int, str], TaskResult]  # (subject, modality) -> result
+
+# The farm's claim order: the longest family first (the LPT rule), so that
+# the last task of a long family does not run alone at the end while every
+# other worker idles. The ranks are the JAX package's, from its measured
+# per-subject walls: vision > audio > conformer > EEGNet > SCNN; other
+# modalities keep their list position among themselves.
+_FARM_DURATION_RANK = {
+    "vision": 0, "vision_resnet": 1, "audio": 2, "eeg_conformer": 3,
+    "eeg": 4, "audio_scnn": 5,
+}
 
 
 def _read_jsonl(path: str) -> List[dict]:
@@ -68,17 +80,22 @@ class SweepRunner:
     def __init__(self, cfg: SweepConfig, task_fn: TaskFn):
         self.cfg = cfg
         self.task_fn = task_fn
+        # journal and metrics appends and the shared state's updates: the
+        # farm runs tasks, and stacked setups, on several threads
+        self._log_lock = threading.Lock()
 
     def _task_id(self, subject: int, modality: str) -> str:
         return f"subject{subject:02d}_{modality}"
 
     def journal_state(self) -> Dict[str, dict]:
-        """The latest journal record of each task id."""
-        state: Dict[str, dict] = {}
-        for rec in _read_jsonl(self.cfg.journal_path):
-            if "task" in rec:  # event records (the JAX farm's summaries) carry none
-                state[rec["task"]] = rec
-        return state
+        """The latest journal record of each task id, read under the log
+        lock (a farm worker's stacked setup reads it while others append)."""
+        with self._log_lock:
+            state: Dict[str, dict] = {}
+            for rec in _read_jsonl(self.cfg.journal_path):
+                if "task" in rec:  # event records carry none
+                    state[rec["task"]] = rec
+            return state
 
     def pending_tasks(self) -> List[Tuple[int, str]]:
         """(subject, modality) of every task not done and not out of
@@ -96,23 +113,30 @@ class SweepRunner:
 
     def _record(self, tid: str, state: Dict[str, dict], rec: dict,
                 metrics: Optional[dict] = None) -> None:
-        if metrics is not None:
-            _append_jsonl(self.cfg.metrics_path, metrics)
-        _append_jsonl(self.cfg.journal_path, rec)
-        state[tid] = rec
+        with self._log_lock:
+            if metrics is not None:
+                _append_jsonl(self.cfg.metrics_path, metrics)
+            _append_jsonl(self.cfg.journal_path, rec)
+            state[tid] = rec
 
-    def _run_one(self, subject: int, modality: str, state: Dict[str, dict],
-                 verbose: bool) -> dict:
-        """Run one task and journal its outcome; an exception fails only
-        this task."""
+    def _attempts(self, tid: str, state: Dict[str, dict]) -> int:
+        with self._log_lock:
+            return state.get(tid, {}).get("attempts", 0) + 1
+
+    def _run_one(self, subject: int, modality: str, task_fn: TaskFn, state: Dict[str, dict],
+                 verbose: bool, extra: Optional[dict] = None) -> dict:
+        """Run one task through ``task_fn`` and journal its outcome; an
+        exception fails only this task. ``extra`` (the farm's ``device`` and
+        ``worker``) joins both records."""
         tid = self._task_id(subject, modality)
-        attempts = state.get(tid, {}).get("attempts", 0) + 1
+        attempts = self._attempts(tid, state)
         t0 = time.perf_counter()
         try:
-            result = self.task_fn(subject, modality)
+            result = task_fn(subject, modality)
             wall = time.perf_counter() - t0
             metrics = dict(result.metrics)
             metrics.update(subject=subject, modality=modality, wall_clock_s=round(wall, 3))
+            metrics.update(extra or {})
             if result.artifacts and self.cfg.checkpoint_dir:
                 from eav_tpu_torch.core.checkpoint import save_pytree
 
@@ -124,6 +148,7 @@ class SweepRunner:
             rec = {"task": tid, "status": "failed", "attempts": attempts,
                    "error": f"{type(e).__name__}: {e}",
                    "traceback": traceback.format_exc(limit=5), "ts": time.time()}
+        rec.update(extra or {})
         self._record(tid, state, rec, metrics)
         if verbose:
             if rec["status"] == "done":
@@ -144,13 +169,214 @@ class SweepRunner:
             if prefetch_fn is not None and i + 1 < len(tasks):
                 thread = threading.Thread(target=prefetch_fn, args=tasks[i + 1], daemon=True)
                 thread.start()
-            self._run_one(subject, modality, state, verbose)
+            self._run_one(subject, modality, self.task_fn, state, verbose)
             if thread is not None:
                 thread.join()
         return state
 
+    def run_farmed(self, workers: Sequence, verbose: bool = True,
+                   exclude_modalities: Sequence[str] = (),
+                   task_timeout_s: Optional[float] = None) -> Dict[str, dict]:
+        """The task farm: ``len(workers)`` device-bound workers
+        (``parallel/farm.DeviceWorker``: ``name``, ``task_fn``, optional
+        ``prefetch_fn`` and ``setup_fn``) pull pending (subject, modality)
+        tasks concurrently, one fit per device at a time, longest family
+        first (``_FARM_DURATION_RANK``). Claims are taken under a lock, so
+        each task runs on one worker; both records of a farmed task carry
+        ``device`` (the worker's name) and ``worker`` (its index).
+
+        - Each worker claims its next task ahead and prefetches it while the
+          current one fits, except when the unclaimed tail is no deeper than
+          the worker count (claiming there would pin tail tasks to busy
+          workers while free ones starve); a farm of one worker always
+          claims ahead.
+        - ``setup_fn`` runs on the worker's thread before its first claim
+          (the CLI's slice of the stacked pass); its wall time counts as the
+          worker's busy time, and a failing setup leaves its tasks pending.
+        - ``exclude_modalities`` are driven elsewhere (the CLI's stacked
+          families); fusion is always excluded: it reads the other
+          modalities' archives, so it runs after them in the caller's
+          serial pass.
+        - ``task_timeout_s`` (off by default): a task still running at its
+          deadline is journaled failed with the note ``timeout``, its
+          worker's ahead-claim goes back to the pool and the worker retires
+          (its device is presumed wedged; the thread cannot be killed and is
+          left as a daemon, and should it finish, its ``done`` record
+          supersedes the timeout on resume). A prefetch past the deadline
+          retires its worker too, and a setup past four deadlines (a few
+          group fits).
+
+        A ``farm_summary`` event (workers, tasks done, makespan, each
+        worker's busy seconds) is appended to the metrics file."""
+        state = self.journal_state()
+        excluded = set(exclude_modalities) | {"fusion"}
+        tasks = [t for t in self.pending_tasks() if t[1] not in excluded]
+        tasks.sort(key=lambda t: _FARM_DURATION_RANK.get(t[1], 50))  # stable
+        claim_cv = threading.Condition()
+        pos = [0]  # the next unclaimed task
+        inflight = [0]  # tasks running under a worker, and held prefetches
+        per_worker = [{"name": getattr(w, "name", str(i)), "tasks": 0, "busy_s": 0.0}
+                      for i, w in enumerate(workers)]
+
+        def claim(ahead: bool = False):
+            with claim_cv:
+                if ahead:
+                    if len(workers) > 1 and len(tasks) - pos[0] <= len(workers):
+                        return None
+                    if pos[0] >= len(tasks):
+                        return None
+                else:
+                    # a free worker stays while tasks are in flight: a worker
+                    # that times out returns its ahead-claim to the pool
+                    while pos[0] >= len(tasks):
+                        if inflight[0] == 0:
+                            return None
+                        claim_cv.wait(timeout=1.0)
+                pos[0] += 1
+                return tasks[pos[0] - 1]
+
+        def give_back(task) -> None:
+            """Return an ahead-claimed task to the head of the pool (under
+            ``claim_cv``)."""
+            tasks.insert(pos[0], task)
+
+        def safe_prefetch(fn, subject, modality):
+            try:
+                fn(subject, modality)
+            except Exception as e:  # noqa: BLE001 — prefetch is best-effort
+                print(f"[farm] prefetch subject{subject:02d} {modality} failed ({e})")
+
+        def run_deadlined(widx, w, cur) -> bool:
+            """Run ``cur`` on worker ``w``; False when it blew the deadline."""
+            extra = {"device": getattr(w, "name", str(widx)), "worker": widx}
+            if task_timeout_s is None:
+                self._run_one(cur[0], cur[1], w.task_fn, state, verbose, extra=extra)
+                return True
+            helper = threading.Thread(target=self._run_one,
+                                      args=(cur[0], cur[1], w.task_fn, state, verbose),
+                                      kwargs={"extra": extra}, daemon=True,
+                                      name=f"farm-{widx}-task")
+            helper.start()
+            helper.join(task_timeout_s)
+            if not helper.is_alive():
+                return True
+            tid = self._task_id(*cur)
+            rec = {"task": tid, "status": "failed", "attempts": self._attempts(tid, state),
+                   "error": f"TimeoutError: task exceeded farm deadline ({task_timeout_s}s); "
+                            f"worker {widx} retired",
+                   "note": "timeout", "ts": time.time(), **extra}
+            self._record(tid, state, rec)
+            if verbose:
+                print(f"[farm] {tid} TIMED OUT after {task_timeout_s}s on worker {widx}; "
+                      "retiring the worker, others drain on")
+            return False
+
+        def run_setup(widx, setup) -> bool:
+            """Run a worker's ``setup_fn``; False when it blew four task
+            deadlines (the worker retires, its tasks stay pending)."""
+            done = threading.Event()
+
+            def target():
+                try:
+                    setup()
+                except Exception as e:  # noqa: BLE001 — keep the worker alive
+                    print(f"[farm] worker {widx} setup failed ({e}); "
+                          "its tasks stay pending for the serial pass")
+                finally:
+                    done.set()
+
+            if task_timeout_s is None:
+                target()
+                return True
+            threading.Thread(target=target, daemon=True, name=f"farm-{widx}-setup").start()
+            if done.wait(task_timeout_s * 4):
+                return True
+            print(f"[farm] worker {widx} setup exceeded {task_timeout_s * 4:.0f}s; retiring "
+                  "the worker, its stacked tasks stay pending for the serial pass")
+            return False
+
+        def worker_loop(widx, w):
+            setup = getattr(w, "setup_fn", None)
+            if setup is not None:
+                t0 = time.perf_counter()
+                ok = run_setup(widx, setup)
+                per_worker[widx]["busy_s"] += time.perf_counter() - t0
+                if not ok:
+                    return
+            cur = claim()
+            while cur is not None:
+                nxt = claim(ahead=True)
+                pf = None
+                if getattr(w, "prefetch_fn", None) is not None and nxt is not None:
+                    pf = threading.Thread(target=safe_prefetch, args=(w.prefetch_fn, *nxt),
+                                          daemon=True)
+                    pf.start()
+                t0 = time.perf_counter()
+                with claim_cv:
+                    inflight[0] += 1
+                ok = run_deadlined(widx, w, cur)
+                # a prefetch joined under a deadline keeps its worker counted
+                # in flight: survivors must not exit before a wedged
+                # prefetch's ahead-claim comes back to the pool
+                hold = ok and pf is not None and task_timeout_s is not None
+                with claim_cv:
+                    if not ok and nxt is not None:
+                        give_back(nxt)
+                    if not hold:
+                        inflight[0] -= 1
+                    claim_cv.notify_all()
+                per_worker[widx]["busy_s"] += time.perf_counter() - t0
+                if not ok:
+                    return
+                per_worker[widx]["tasks"] += 1
+                if pf is not None:
+                    if hold:
+                        pf.join(task_timeout_s)
+                        stuck = pf.is_alive()
+                        with claim_cv:
+                            if stuck:
+                                give_back(nxt)
+                            inflight[0] -= 1
+                            claim_cv.notify_all()
+                        if stuck:
+                            if verbose:
+                                print(f"[farm] worker {widx} prefetch exceeded "
+                                      f"{task_timeout_s}s; retiring the worker, its "
+                                      "ahead-claim returns to the pool")
+                            return
+                    else:
+                        pf.join()
+                cur = nxt if nxt is not None else claim()
+
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=worker_loop, args=(i, w), name=f"farm-{i}")
+                   for i, w in enumerate(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        makespan = time.perf_counter() - t_start
+        summary = {
+            "event": "farm_summary",
+            "n_workers": len(workers),
+            "n_tasks": sum(pw["tasks"] for pw in per_worker),
+            "makespan_s": round(makespan, 3),
+            "busy_s": [round(pw["busy_s"], 3) for pw in per_worker],
+            "workers": [pw["name"] for pw in per_worker],
+            "ts": time.time(),
+        }
+        with self._log_lock:
+            _append_jsonl(self.cfg.metrics_path, summary)
+        if verbose and summary["n_tasks"]:
+            busy = sum(pw["busy_s"] for pw in per_worker)
+            print(f"[farm] {summary['n_tasks']} tasks over {len(workers)} workers: makespan "
+                  f"{makespan:.1f}s, aggregate busy {busy:.1f}s "
+                  f"(speedup x{busy / max(makespan, 1e-9):.2f})")
+        return state
+
     def run_batched(self, modality: str, batch_fn, group_size: int = 8,
-                    verbose: bool = True, prefetch_fn=None) -> Dict[str, dict]:
+                    verbose: bool = True, prefetch_fn=None,
+                    only_subjects=None) -> Dict[str, dict]:
         """Run the pending subjects of one modality in groups through
         ``batch_fn(subjects) -> {subject: TaskResult}`` (e.g.
         ``ModalityPipelines.run_stacked``), writing the serial path's records.
@@ -160,9 +386,15 @@ class SweepRunner:
         serial ``task_fn`` before it is journaled as failed.
         ``prefetch_fn(subject, modality)`` walks group G+1's subjects on a
         daemon thread while group G runs; its failures are printed, not
-        raised (the group's own load raises them)."""
+        raised (the group's own load raises them).
+
+        ``only_subjects``: run only these of the pending subjects (in
+        pending order, so whole group-sized chunks regroup as they were
+        cut). The CLI spreads the stacked pass over farm workers this way;
+        callers pass disjoint sets, since batched groups take no claim."""
         state = self.journal_state()
-        pending = [s for s, m in self.pending_tasks() if m == modality]
+        pending = [s for s, m in self.pending_tasks()
+                   if m == modality and (only_subjects is None or s in only_subjects)]
         groups = [pending[g : g + group_size] for g in range(0, len(pending), group_size)]
 
         def prefetch_group(subjects):
@@ -193,8 +425,7 @@ class SweepRunner:
                 metrics = dict(results[s].metrics)
                 metrics.update(subject=s, modality=modality,
                                wall_clock_s=round(wall / len(group), 3))
-                rec = {"task": tid, "status": "done",
-                       "attempts": state.get(tid, {}).get("attempts", 0) + 1,
+                rec = {"task": tid, "status": "done", "attempts": self._attempts(tid, state),
                        "wall_clock_s": round(wall / len(group), 3), "ts": time.time()}
                 self._record(tid, state, rec, metrics)
             if verbose:
@@ -220,13 +451,11 @@ class SweepRunner:
                 wall = time.perf_counter() - t1
                 metrics = dict(result.metrics)
                 metrics.update(subject=s, modality=modality, wall_clock_s=round(wall, 3))
-                rec = {"task": tid, "status": "done",
-                       "attempts": state.get(tid, {}).get("attempts", 0) + 1,
+                rec = {"task": tid, "status": "done", "attempts": self._attempts(tid, state),
                        "wall_clock_s": round(wall, 3),
                        "note": f"serial fallback after stacked failure: {e}", "ts": time.time()}
             except Exception as e2:  # noqa: BLE001 — task isolation
-                rec = {"task": tid, "status": "failed",
-                       "attempts": state.get(tid, {}).get("attempts", 0) + 1,
+                rec = {"task": tid, "status": "failed", "attempts": self._attempts(tid, state),
                        "error": f"{type(e2).__name__}: {e2}",
                        "stacked_error": f"{type(e).__name__}: {e}",
                        "traceback": traceback.format_exc(limit=5), "ts": time.time()}

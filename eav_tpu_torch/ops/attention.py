@@ -25,7 +25,8 @@ products, as on the TPU.
 Each kernel has a plain PyTorch version (``*_plain``) with the same outputs
 and the same rounding points. A wrapper runs the plain version for tensors on
 the CPU and the CUDA kernel for tensors on a GPU; it never falls back from
-one to the other. Each wrapper counts its kernel launches in ``.launches``.
+one to the other. Each wrapper counts its kernel launches in ``.launches``,
+under ``ops/build.LOCK`` (farm workers launch from several threads).
 ``Di = rowsum(dO * O)`` stays plain PyTorch in float32, as it stayed XLA.
 """
 
@@ -36,6 +37,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from eav_tpu_torch.ops import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
@@ -59,20 +62,26 @@ _lib = None
 
 
 def _library() -> ctypes.CDLL:
-    """The kernels' library, built at first use, with typed entry points."""
+    """The kernels' library, built at first use, with typed entry points;
+    under ``build.LOCK``, so two threads never both build or type it."""
     global _lib
-    if _lib is None:
-        from eav_tpu_torch.ops import build
+    with build.LOCK:
+        if _lib is None:
+            lib = build.load("flash_attention")
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.eav_cuda_error_string.argtypes = (ctypes.c_int,)
+            lib.eav_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
 
-        lib = build.load("flash_attention")
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.eav_cuda_error_string.argtypes = (ctypes.c_int,)
-        lib.eav_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel (``+=`` is not atomic across threads)."""
+    with build.LOCK:
+        wrapper.launches += 1
 
 
 def _scale(d: int) -> float:
@@ -204,7 +213,7 @@ def flash_fwd(q, k, v, t_real: int):
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
     _launch("eav_flash_fwd", q, (q, k, v, o, lse), bh, t_pad, t_real)
-    flash_fwd.launches += 1
+    _count(flash_fwd)
     return o, lse
 
 
@@ -216,7 +225,7 @@ def flash_dkv(q, k, v, do, lse, di, t_real: int):
         return flash_dkv_plain(q, k, v, do, lse, di, t_real)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("eav_flash_dkv", q, (q, k, v, do, lse, di, dk, dv), bh, t_pad, t_real)
-    flash_dkv.launches += 1
+    _count(flash_dkv)
     return dk, dv
 
 
@@ -228,7 +237,7 @@ def flash_dq(q, k, v, do, lse, di, t_real: int):
         return flash_dq_plain(q, k, v, do, lse, di, t_real)
     dq = torch.empty_like(q)
     _launch("eav_flash_dq", q, (q, k, v, do, lse, di, dq), bh, t_pad, t_real)
-    flash_dq.launches += 1
+    _count(flash_dq)
     return dq
 
 
@@ -264,7 +273,7 @@ def flash_onepass(q, k, v, t_real: int):
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
     _launch("eav_flash_onepass", q, (q, k, v, o, lse), bh, t_pad, t_real)
-    flash_onepass.launches += 1
+    _count(flash_onepass)
     return o, lse
 
 
@@ -276,8 +285,9 @@ KERNELS = (flash_fwd, flash_dkv, flash_dq, flash_onepass)
 
 
 def reset_launches() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+    with build.LOCK:
+        for fn in KERNELS:
+            fn.launches = 0
 
 
 # -----------------------------------------------------------------------------

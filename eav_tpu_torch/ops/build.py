@@ -6,7 +6,9 @@ compiler flags: an edited source builds anew, an unchanged one is reused.
 ptxas's report of each kernel's registers and spills is kept beside it as
 ``lib<name>-<hash>.log`` (``resource_usage`` reads it). The build needs
 ``nvcc`` (from ``CUDA_HOME`` as PyTorch finds it) and targets Hopper
-(``sm_90a``). Nothing here runs at import time.
+(``sm_90a``). Nothing here runs at import time. ``LOCK`` serialises the
+build and the load within a process (the farm's workers reach them from
+threads of their own).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -28,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -49,18 +53,20 @@ def build(name: str) -> Path:
     temporary name and renames, so a process building at the same time never
     loads a partial library. Raises with the compiler output if nvcc fails."""
     path = library_path(name)
-    if path.exists():
+    with LOCK:
+        if path.exists():
+            return path
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = (nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"))
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc {name}.cu failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, path)
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = (nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"))
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc {name}.cu failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path
 
 
 def resource_usage(name: str) -> Dict[str, Tuple[int, int]]:
@@ -82,7 +88,8 @@ def resource_usage(name: str) -> Dict[str, Tuple[int, int]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
-    return lib
+    with LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        return lib

@@ -1,1 +1,2 @@
-"""Subject-parallel training (``parallel/subject.py``)."""
+"""Subject-parallel training (``parallel/subject.py``) and the task farm
+over devices (``parallel/farm.py``)."""

@@ -28,11 +28,16 @@ Each subject keeps ``Trainer.fit``'s contract at its own seed:
   (``models/dropout.record_dropouts`` finds them), and the masks enter the
   vmapped call as batched ``mask`` buffers: subject s gets the masks its
   serial fit draws;
-- ``keep_epoch_logits``: (S, epochs, n_test, classes).
+- ``keep_epoch_logits``: (S, epochs, n_test, classes);
+- ``l1_reg`` / ``l2_reg``: each subject's loss adds the penalty over its own
+  kernels (``train/loop.py`` ``kernel_penalty``), and the history's loss
+  holds it, as the serial one does; ``compat_batch_mean_acc``: each
+  subject's accuracies are means over its batches (``Trainer._train_acc``,
+  ``_test_acc``).
 
 The JAX package's TPU and XLA workarounds are left out: ``mesh`` and
-``_mesh_for`` (one card here; the multi-device farm is a later item of the
-port), and ``epochs_per_call``, ``epc_target_seconds`` and
+``_mesh_for`` (a stack lives on one card; several cards run the task farm
+of ``parallel/farm.py``), and ``epochs_per_call``, ``epc_target_seconds`` and
 ``_quantize_chunk`` (they chunk one XLA program to bound a call's time).
 """
 
@@ -52,7 +57,7 @@ from eav_tpu_torch.core.config import FinetuneConfig
 from eav_tpu_torch.core.device import deterministic_algorithms
 from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, maxnorm_project, trainable_mask
 from eav_tpu_torch.models.dropout import record_dropouts, set_generator
-from eav_tpu_torch.train.loop import Trainer
+from eav_tpu_torch.train.loop import KERNEL_MODULES, Trainer
 
 
 def stacked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -90,21 +95,18 @@ class Stack:
 class SubjectParallelTrainer:
     """Stacked fits of ``model`` (any model ``Trainer`` takes) under one
     ``FinetuneConfig``, on ``device`` (``"cuda"`` unless the caller passes
-    another); ``deterministic`` as for ``Trainer``. The trainer flags
-    ``l1_reg``, ``l2_reg`` and ``compat_batch_mean_acc`` (no preset sets
-    them) are serial only and raise here."""
+    another); ``deterministic`` as for ``Trainer``."""
 
     def __init__(self, model: nn.Module, cfg: FinetuneConfig, head_regex: str = HEAD_REGEX,
                  device="cuda", deterministic: bool = False):
-        if cfg.l1_reg or cfg.l2_reg or cfg.compat_batch_mean_acc:
-            raise ValueError("l1_reg, l2_reg and compat_batch_mean_acc are not supported "
-                             "in stacked fits")
         self.inner = Trainer(model, cfg, head_regex, device, deterministic)
         self.model = self.inner.model  # the module functional_call runs
         set_generator(self.model, None)  # a stacked forward draws no mask itself
         self.cfg = cfg
         self.device = self.inner.device
         self._dropout_calls: Dict[Tuple, List[Tuple[str, torch.Size]]] = {}
+        self._kernels = [f"{name}.weight" for name, m in self.model.named_modules()
+                         if isinstance(m, KERNEL_MODULES)]
 
     def init_stack(self, seeds: Sequence[int],
                    init_params: Optional[Dict[str, torch.Tensor]] = None) -> Stack:
@@ -175,12 +177,24 @@ class SubjectParallelTrainer:
         masks = self._masks(stack, x, mode)
         logits = self._apply((stack.params, stack.buffers, masks), x, mode)
         loss = stacked_cross_entropy(logits, y, self.cfg.compat_softmax)
+        if self.cfg.l1_reg or self.cfg.l2_reg:
+            loss = loss + self._kernel_penalty(stack.params)
         stack.opt.zero_grad(set_to_none=True)
         loss.sum().backward()
         stack.opt.step()
         if self.inner.maxnorm_rules:
             maxnorm_project(stack.params, self.inner.maxnorm_rules, batch_dims=1)
         return loss.detach(), (logits.detach().argmax(-1) == y).sum(1)
+
+    def _kernel_penalty(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Each subject's ``kernel_penalty`` over its own kernels -> (S,)."""
+        kernels = [params[name] for name in self._kernels]
+        total = torch.zeros(kernels[0].shape[0], device=kernels[0].device)
+        if self.cfg.l1_reg:
+            total = total + self.cfg.l1_reg * sum(k.abs().flatten(1).sum(1) for k in kernels)
+        if self.cfg.l2_reg:
+            total = total + self.cfg.l2_reg * sum(k.square().flatten(1).sum(1) for k in kernels)
+        return total
 
     def predict(self, x, params: Dict[str, torch.Tensor]) -> np.ndarray:
         """Eval-mode logits (S, n, classes) of stacked splits (S, n, ...) under
@@ -240,8 +254,8 @@ class SubjectParallelTrainer:
                     correct.append(corr)
                 te_logits = self._eval(state, pe, mode)
                 hist["loss"].append(torch.stack(losses, 1).mean(1))
-                hist["train_acc"].append(torch.stack(correct, 1).sum(1) / n_train)
-                hist["test_acc"].append((te_logits.argmax(-1) == te_y).float().mean(1))
+                hist["train_acc"].append(self.inner._train_acc(torch.stack(correct, 1), n_train, bs))
+                hist["test_acc"].append(self.inner._test_acc(te_logits, te_y))
                 if cfg.keep_epoch_logits:
                     epoch_logits.append(te_logits)
         history = {k: torch.stack(v, 1).float().cpu().numpy() for k, v in hist.items()}

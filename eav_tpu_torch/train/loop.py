@@ -80,14 +80,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return F.cross_entropy(z, labels)
 
 
+KERNEL_MODULES = (nn.Linear, nn.modules.conv._ConvNd)
+
+
 def kernel_penalty(model: nn.Module, l1: float, l2: float) -> torch.Tensor:
     """``l1 * sum |k| + l2 * sum k^2`` over the weights the JAX trainer calls
     ``kernel`` (`eav_tpu/train/loop.py:321-329`): those of every Linear and
-    convolution (the transformers' ``PatchProj`` is one). Biases, norm
-    scales, tokens, position embeddings and free parameters (the
-    conformer's ``spatial_proj``, the fusion head's) are not kernels."""
-    kernels = [m.weight for m in model.modules()
-               if isinstance(m, (nn.Linear, nn.modules.conv._ConvNd))]
+    convolution (``KERNEL_MODULES``; the transformers' ``PatchProj`` is one).
+    Biases, norm scales, tokens, position embeddings and free parameters
+    (the conformer's ``spatial_proj``, the fusion head's) are not kernels."""
+    kernels = [m.weight for m in model.modules() if isinstance(m, KERNEL_MODULES)]
     total = torch.zeros((), device=kernels[0].device)
     if l1:
         total = total + l1 * sum(k.abs().sum() for k in kernels)
@@ -179,23 +181,25 @@ class Trainer:
         return loss.detach(), (logits.detach().argmax(-1) == y).sum()
 
     def _train_acc(self, correct: torch.Tensor, n: int, bs: int) -> torch.Tensor:
-        """An epoch's train accuracy from its per-batch correct counts: over
-        samples, or with ``compat_batch_mean_acc`` the mean over batches of
-        each batch's accuracy (the last, partial batch weighs as a whole)."""
+        """An epoch's train accuracy from its per-batch correct counts (the
+        last axis; a stacked fit's lead with subjects): over samples, or
+        with ``compat_batch_mean_acc`` the mean over batches of each batch's
+        accuracy (the last, partial batch weighs as a whole)."""
         if not self.cfg.compat_batch_mean_acc:
-            return correct.sum() / n
+            return correct.sum(-1) / n
         sizes = torch.full_like(correct, bs, dtype=torch.float32)
-        sizes[-1] = n - bs * (len(correct) - 1)
-        return (correct / sizes).mean()
+        sizes[..., -1] = n - bs * (correct.shape[-1] - 1)
+        return (correct / sizes).mean(-1)
 
     def _test_acc(self, logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Test accuracy over samples, or with ``compat_batch_mean_acc`` the
-        mean over eval batches (``eval_batch_size``) of their accuracies."""
+        """Test accuracy over samples (the last axis of ``y``), or with
+        ``compat_batch_mean_acc`` the mean over eval batches
+        (``eval_batch_size``) of their accuracies."""
         hit = (logits.argmax(-1) == y).float()
         if not self.cfg.compat_batch_mean_acc:
-            return hit.mean()
-        bs = min(self.cfg.eval_batch_size, len(hit))
-        return torch.stack([c.mean() for c in hit.split(bs)]).mean()
+            return hit.mean(-1)
+        bs = min(self.cfg.eval_batch_size, hit.shape[-1])
+        return torch.stack([c.mean(-1) for c in hit.split(bs, -1)], -1).mean(-1)
 
     def _ckpt_fingerprint(self, tr_shape, te_shape) -> str:
         """Hash of what decides a fit's trajectory given its data: the whole

@@ -467,13 +467,15 @@ class ModalityPipelines:
             "eeg": lambda s: self.load_eeg(s, "eeg"),
             "eeg_conformer": lambda s: self.load_eeg(s, "eeg_conformer"),
             "audio": lambda s: self.load_audio(s, "fbank"),
+            "audio_scnn": lambda s: self.load_audio(s, "scnn180"),
             "vision": lambda s: self.load_vision(s, "vision"),
+            "vision_resnet": lambda s: self.load_vision(s, "vision_resnet"),
         }
         vote_group, splits = None, []
         for s in subjects:
             x, y = loaders[modality](s)
             sp = eav_split(x, y, h_idx=preset.split.h_idx, num_classes=preset.split.num_classes)
-            if modality == "vision":
+            if modality in ("vision", "vision_resnet"):
                 vote_group = int(x.shape[1])  # frames per trial
                 (tr_f, tr_fy), (te_f, te_fy) = (flatten_trials_to_frames(sp[0], sp[1]),
                                                 flatten_trials_to_frames(sp[2], sp[3]))
@@ -501,10 +503,12 @@ class ModalityPipelines:
         ``'flash'`` resolve to ``'math'``: the flash kernels have no vmap
         rule) and recomputes its attention sublayer in the backward (remat
         ``'none'`` becomes ``'attn'``), as the JAX package's stacked
-        programs do."""
+        programs do. A pretrained checkpoint (``_pretrained_params``) is the
+        init of every subject, as in the serial fits."""
         from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
 
-        if modality not in ("eeg", "eeg_conformer", "audio", "vision"):
+        if modality not in ("eeg", "eeg_conformer", "audio", "audio_scnn", "vision",
+                            "vision_resnet"):
             raise KeyError(f"run_stacked does not support modality {modality!r}")
         preset = self.presets[modality]
         t0 = time.perf_counter()
@@ -517,10 +521,16 @@ class ModalityPipelines:
                 overrides["attn_impl"] = "math"
             if kw.get("remat", "none") == "none":
                 overrides["remat"] = "attn"
-        trainer = SubjectParallelTrainer(build_model(preset, **overrides), preset.finetune,
+        model = build_model(preset, **overrides)
+        trainer = SubjectParallelTrainer(model, preset.finetune,
+                                         getattr(model, "HEAD_REGEX", HEAD_REGEX),
                                          device=self.device, deterministic=self.deterministic)
+        init = _pretrained_params(preset.finetune.model, NUM_CLASSES, self._pretrained)
+        if init is not None:
+            init = {k: v.expand(len(subjects), *v.shape) for k, v in init.items()}
         t0 = time.perf_counter()
-        stacked = trainer.fit_stacked(stack, seeds=[self.seed + s for s in subjects])
+        stacked = trainer.fit_stacked(stack, seeds=[self.seed + s for s in subjects],
+                                      init_params=init)
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         tr_logits = trainer.predict(stack[0], stacked.params) if self.logits_dir else None

@@ -2,7 +2,9 @@
 stacked against the port's own serial ``Trainer.fit`` subject by subject
 (dropout on, shuffled batches, the sticky eval mode, max-norm, BatchNorm's
 running stats, remat under vmap, freeze -> unfreeze with init weights, uint8
-frames), stacked against the JAX package's ``fit_stacked`` on the same
+frames; the SCNN, with the trainer flags ``l1_reg``, ``l2_reg`` and
+``compat_batch_mean_acc``; ResNetAttn's frozen and unfrozen steps), stacked
+against the JAX package's ``fit_stacked`` and ``run_stacked`` on the same
 weights, ``keep_epoch_logits``, the partial init overlay, and
 ``run_stacked`` end to end. Tolerance: rtol = atol = 2e-4, the JAX package's
 stacked == serial bound (tests/test_parallel.py)."""
@@ -23,10 +25,13 @@ from eav_tpu_torch.core.config import (
     PresetConfig,
     SplitConfig,
 )
+from eav_tpu_torch.core.optim import HEAD_REGEX
 from eav_tpu_torch.models.ast import ast_tiny
 from eav_tpu_torch.models.conformer_eeg import ConformerEEG
 from eav_tpu_torch.models.dropout import Dropout, record_dropouts
 from eav_tpu_torch.models.eegnet import EEGNet
+from eav_tpu_torch.models.resnet_attn import ResNetAttn
+from eav_tpu_torch.models.scnn_audio import SCNNAudio
 from eav_tpu_torch.models.vit import vit_tiny
 from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
 from eav_tpu_torch.train.loop import Trainer
@@ -34,6 +39,18 @@ from eav_tpu_torch.train.pipeline import ModalityPipelines
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 EEGNET_TINY = dict(chans=4, samples=64, kern_length=16, f1=4, d=2, f2=8)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread a test: the test runner runs several files at
+    once, and torch's default of a thread per core oversubscribes the host
+    (the stacked SCNN tests took 6x longer beside five busy processes with
+    the default than with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _stacked_data(rng, shape, subjects, n_train=14, n_test=6, uint8=False):
@@ -52,13 +69,14 @@ def _eeg_cfg(lr=1e-2, epochs=3, sticky=True, **kw):
                           compat_sticky_eval=sticky, **kw)
 
 
-def _assert_matches_serial(make_model, cfg, data, seeds, init_params=None, serial_init=None):
+def _assert_matches_serial(make_model, cfg, data, seeds, init_params=None, serial_init=None,
+                           head_regex=HEAD_REGEX):
     """Each subject's stacked fit against ``Trainer.fit`` at its seed:
     history, test logits and every state_dict entry (the BN running stats
     included)."""
-    stacked = SubjectParallelTrainer(make_model(), cfg, device="cpu").fit_stacked(
+    stacked = SubjectParallelTrainer(make_model(), cfg, head_regex, device="cpu").fit_stacked(
         data, seeds=seeds, init_params=init_params)
-    trainer = Trainer(make_model(), cfg, device="cpu")
+    trainer = Trainer(make_model(), cfg, head_regex, device="cpu")
     for s, seed in enumerate(seeds):
         serial = trainer.fit(tuple(a[s] for a in data), seed=seed, init_params=serial_init)
         for k in ("loss", "train_acc", "test_acc"):
@@ -290,14 +308,144 @@ def test_run_stacked_eeg_end_to_end(tmp_path, rng):
 
 
 def test_run_stacked_refuses_modalities_not_ported(tmp_path):
-    """The SCNN and ResNet baselines run serially; their stacked fits are not
-    ported, and run_stacked refuses them as it refuses fusion."""
+    """Fusion has no stacked form, and an unknown key none either: both
+    raise. The SCNN and ResNet families stack (as in JAX): without data
+    they fail in the load, not at the gate."""
     pipes = ModalityPipelines(str(tmp_path), device="cpu")
-    for modality in ("audio_scnn", "vision_resnet"):
+    for modality in ("fusion", "eeg_scnn"):
         with pytest.raises(KeyError, match="does not support"):
             pipes.run_stacked([1, 2], modality)
-    with pytest.raises(KeyError, match="does not support"):
-        pipes.run_stacked([1, 2], "fusion")
+    for modality in ("audio_scnn", "vision_resnet"):
+        with pytest.raises(FileNotFoundError):
+            pipes.run_stacked([1, 2], modality)
+
+
+def _scnn_cfg(**flags):
+    return FinetuneConfig(model="scnn_audio", batch_size=4, optimizer="adam", weight_decay=0.0,
+                          phases=(PhaseConfig(2, 1e-3, False),), eval_batch_size=3, **flags)
+
+
+@pytest.mark.parametrize("flags", [
+    {}, {"l1_reg": 1e-4, "l2_reg": 1e-3, "compat_batch_mean_acc": True},
+], ids=["plain", "flags"])
+def test_stacked_scnn_with_dropout_matches_serial(rng, flags):
+    """S 2 at the preset's dropout (0.1, 0.5) and lr 1e-3, shuffled batches
+    of 4 over 10 rows (a partial last one), eval batches of 3; with the
+    three trainer flags, the penalty in each subject's loss and the
+    per-batch accuracies."""
+    data = _stacked_data(rng, (180,), 2, n_train=10, n_test=5)
+    stacked = _assert_matches_serial(SCNNAudio, _scnn_cfg(**flags), data, seeds=[3, 4])
+    assert not np.allclose(stacked.outputs_test[0], stacked.outputs_test[1])
+
+
+def _jax_scnn_inits(x, seeds):
+    from eav_tpu.models.scnn_audio import SCNNAudio as JaxSCNNAudio
+
+    mj = JaxSCNNAudio(dropout_rates=(0.0, 0.0))
+    return mj, [jax.tree.map(np.asarray, mj.init(jax.random.PRNGKey(s), x[:1])["params"])
+                for s in seeds]
+
+
+@pytest.mark.parametrize("flags", [
+    {"l1_reg": 1e-4, "l2_reg": 1e-3}, {"compat_batch_mean_acc": True},
+], ids=["l1_l2", "batch_mean_acc"])
+def test_stacked_scnn_flags_match_jax_fit_stacked(rng, flags):
+    """The trainer flags in a stacked fit: the same stacked SCNN weights
+    into JAX's ``fit_stacked`` and the port's (dropout 0, in-order
+    batches): histories and test logits to 2e-4."""
+    from eav_tpu.core.config import FinetuneConfig as JaxFinetuneConfig
+    from eav_tpu.core.config import PhaseConfig as JaxPhaseConfig
+    from eav_tpu.parallel.subject import SubjectParallelTrainer as JaxSubjectParallelTrainer
+    from eav_tpu_torch.models.bridge import scnn_params_from_jax
+
+    data = _stacked_data(rng, (180,), 2, n_train=10, n_test=5)
+    kw = dict(model="scnn_audio", batch_size=4, optimizer="adam", weight_decay=0.0,
+              shuffle=False, eval_batch_size=3, **flags)
+    mj, inits = _jax_scnn_inits(data[0][0], (1, 2))
+    stacked_p = jax.tree.map(lambda *a: np.stack(a), *inits)
+    want = JaxSubjectParallelTrainer(mj, JaxFinetuneConfig(
+        phases=(JaxPhaseConfig(2, 1e-3, False),), **kw)).fit_stacked(
+        data, seeds=[0, 1], init_params=jax.tree.map(jnp.asarray, stacked_p))
+    sds = [scnn_params_from_jax(p) for p in inits]
+    got = SubjectParallelTrainer(SCNNAudio(dropout_rates=(0.0, 0.0)), FinetuneConfig(
+        phases=(PhaseConfig(2, 1e-3, False),), **kw), device="cpu").fit_stacked(
+        data, seeds=[0, 1], init_params={k: torch.stack([sd[k] for sd in sds]) for k in sds[0]})
+    for k in ("loss", "train_acc", "test_acc"):
+        np.testing.assert_allclose(got.history[k], want.history[k], **TOL, err_msg=k)
+    np.testing.assert_allclose(got.outputs_test, want.outputs_test, **TOL)
+
+
+def test_run_stacked_scnn_matches_jax(tmp_path, rng, monkeypatch):
+    """``run_stacked([1, 2], "audio_scnn")`` in both packages on the same
+    cached features (the cache key is shared), from one set of weights
+    broadcast to both subjects (the checkpoint path of both), dropout 0 and
+    in-order batches: the same rows (but timings) and archives to 2e-4.
+    At lr 1e-4: at the preset's 1e-3 on these random features, the port's
+    and JAX's test logits part by 0.026 after 6 steps, serial fits as much
+    as stacked ones (Adam steps a weight whose gradient is at rounding
+    level by +-lr, and ReLU units switch), while each package's stacked fit
+    equals its serial one to 3e-6; at 1e-4 the packages agree to 5e-6."""
+    import eav_tpu.train.pipeline as JP
+    from eav_tpu.core.config import get_preset as jax_get_preset
+    import eav_tpu_torch.train.pipeline as P
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.models.bridge import scnn_params_from_jax
+
+    def preset(get):
+        base = get("scnn_audio")
+        ft = dataclasses.replace(base.finetune, batch_size=4, shuffle=False, eval_batch_size=3,
+                                 phases=(dataclasses.replace(base.finetune.phases[0], epochs=2,
+                                                             lr=1e-4),),
+                                 model_kwargs={"dropout_rates": (0.0, 0.0)})
+        return base.replace(split=dataclasses.replace(base.split, h_idx=2), finetune=ft)
+
+    key = P._cfg_hash(preset(get_preset).audio)
+    assert key == JP._cfg_hash(preset(jax_get_preset).audio)
+    for cache in ("jc", "tc"):
+        os.makedirs(tmp_path / cache)
+    for s in (1, 2):
+        x = rng.normal(size=(20, 180)).astype(np.float32)
+        y = np.repeat(np.arange(5), 4).astype(np.int32)
+        for cache in ("jc", "tc"):
+            np.savez(tmp_path / cache / f"s{s:02d}_aud_scnn180_{key}.npz", x=x, y=y)
+    mj, (init,) = _jax_scnn_inits(np.zeros((1, 180), np.float32), (5,))
+    monkeypatch.setattr(JP, "_pretrained_params", lambda *a: (init, None))
+    monkeypatch.setattr(P, "_pretrained_params", lambda *a: scnn_params_from_jax(init))
+    want = JP.ModalityPipelines(str(tmp_path), cache_dir=str(tmp_path / "jc"),
+                                logits_dir=str(tmp_path / "jl"),
+                                presets={"audio_scnn": preset(jax_get_preset)}
+                                ).run_stacked([1, 2], "audio_scnn")
+    got = P.ModalityPipelines(str(tmp_path), cache_dir=str(tmp_path / "tc"),
+                              logits_dir=str(tmp_path / "tl"),
+                              presets={"audio_scnn": preset(get_preset)}, device="cpu"
+                              ).run_stacked([1, 2], "audio_scnn")
+    timings = {"fit_seconds", "samples_per_sec", "load_seconds", "archive_seconds"}
+    for s in (1, 2):
+        g, w = got[s].metrics, want[s].metrics
+        assert g.keys() == w.keys() and g["group_size"] == 2
+        assert g["confusion"] == w["confusion"] and g["epochs"] == w["epochs"] == 2
+        for k in set(w) - timings - {"confusion", "group_size", "epochs"}:
+            assert g[k] == pytest.approx(w[k], abs=2e-4), k
+    assert sorted(os.listdir(tmp_path / "tl")) == sorted(os.listdir(tmp_path / "jl"))
+    for name in os.listdir(tmp_path / "jl"):
+        np.testing.assert_allclose(np.load(tmp_path / "tl" / name), np.load(tmp_path / "jl" / name),
+                                   **TOL, err_msg=name)
+
+
+def test_stacked_resnet_steps_match_serial(rng):
+    """ResNetAttn at 64 x 64, S 2, batch 2: one unfrozen step stacked
+    against serial: history, test logits and every weight and running stat
+    to 2e-4. In float64 (the model computes in its parameters'
+    type): at a random init, BatchNorm over batch 2 makes the float32
+    network ill-conditioned, and stacked and serial float32 losses part by
+    up to 5e-4 with one thread a process. lr 1e-5: where roundoff flips the
+    sign of a near-zero gradient, Adam's first step moves that weight by
+    2 lr."""
+    data = _stacked_data(rng, (64, 64, 3), 2, n_train=2, n_test=2)
+    cfg = FinetuneConfig(model="resnet_attn", batch_size=2, weight_decay=0.01,
+                         phases=(PhaseConfig(1, 1e-5, False),))
+    _assert_matches_serial(lambda: ResNetAttn().double(), cfg, data, seeds=[0, 1],
+                           head_regex=ResNetAttn.HEAD_REGEX)
 
 
 def test_deterministic_mode_holds_only_for_the_fit(tmp_path, rng):

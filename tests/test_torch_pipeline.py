@@ -212,7 +212,9 @@ def test_port_and_chip_smoke_import_without_jax():
     assert {"eav_tpu_torch.parallel.subject", "eav_tpu_torch.models.fusion",
             "eav_tpu_torch.models.scnn_audio", "eav_tpu_torch.models.resnet_attn",
             "eav_tpu_torch.models.hf_import", "eav_tpu_torch.models.mtcnn",
-            "eav_tpu_torch.core.sweep", "eav_tpu_torch.core.checkpoint"} <= set(names)
+            "eav_tpu_torch.core.sweep", "eav_tpu_torch.core.checkpoint",
+            "eav_tpu_torch.cli", "eav_tpu_torch.parallel.farm", "eav_tpu_torch.ingest.verify",
+            "eav_tpu_torch.utils.profiling"} <= set(names)
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):
