@@ -129,7 +129,26 @@ Phases, each of which fails the run on error:
    second run journals nothing; ``aggregate`` equals numpy; ``run
    --profile`` writes a trace naming ``flash_fwd_wgmma``; an unknown
    ``--set`` field and ``--chip-parallel 2`` on one card are refused; the
-   SCNN's stacked step at S 2, 4, 8, 16 and 42 against its serial step.
+   SCNN's stacked step at S 2, 4, 8, 16 and 42 against its serial step;
+23. native ingest: ``csrc/eav_ingest.cc`` built with g++ (whether libav
+   was found is printed); phase 10's ``.mat`` files read natively and by
+   ``mat5``, equal; 10 wavs through ``WavPrefetcher`` and ``read_wav``,
+   equal; both timed; with libav, the MP4 fixture
+   (``eav_tpu_torch/fixtures``) against the cv2 frames stored beside it
+   (without libav that check is reported as not made);
+24. data parallelism: at NCCL world size 1 (this process), the full-width
+   EEGNet fit with a ``data`` mesh equals the plain fit bit for bit in the
+   deterministic mode; ``run_vision`` with the full-width ``vit_finetune``
+   (1 + 1 epochs on phase 8's kind of cache) at world size 1, then at two
+   gloo ranks on ``cuda:0`` (spawned): trial logits within ``DP_TOL``, and
+   a planted fault (no gradient sum) beyond it;
+25. tensor parallelism, in the same two ranks: the full-width AST-base
+   unfrozen step at TP 2 (6 heads a rank) through K1-K3, whose launch
+   counts rise in both ranks, against the unsharded step (``TP_LOSS_RTOL``,
+   ``TP_GRAD_TOL`` of the largest gradient entry), and the contiguous-qkv
+   fault beyond them; the TP step's time over gloo on one card;
+26. ``parallel/dryrun.dryrun_multichip(2, "cuda")``: its legs on two gloo
+   ranks on ``cuda:0`` and the farm's two workers on ``cuda:0``.
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
 float32 means float32 throughout the run. ``CUBLAS_WORKSPACE_CONFIG`` is set
@@ -2407,6 +2426,336 @@ def run_cli_phase(card: str, eeg_root: str, scnn_serial_ms: float) -> None:
     log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -----------------------------------------------------------------------------
+# 23. the native ingest library
+# -----------------------------------------------------------------------------
+
+
+def run_native_phase(card: str, eeg_root: str) -> None:
+    """``csrc/eav_ingest.cc`` built with g++ (libav when ``pkg-config`` finds
+    it); phase 10's ``.mat`` files and phase 5's kind of wavs read natively
+    and by the pure-Python readers, equal, both timed; with libav, the MP4
+    fixture decoded against the cv2 frames stored beside it."""
+    import tempfile
+
+    import numpy as np
+
+    from eav_tpu_torch.ingest import mat5, native
+    from eav_tpu_torch.ingest.wav import read_wav
+    from eav_tpu_torch.ops import build
+    from eav_tpu_torch.scripts.make_video_fixture import FIXTURES, FRAMES, STRIDE
+
+    host = f"the host of {card}"
+    lib = build.library_path("eav_ingest")
+    built = lib.exists()  # the audio ingest of phase 5 builds it at first use
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("no g++: the native ingest library cannot be built")
+    how = ("built with g++ at its first use (phase 5's audio ingest)" if built
+           else f"built with g++ in {time.perf_counter() - t0:.2f} s")
+    libav = native.mp4_supported()
+    log(f"native ingest: {lib.name} {how} on {host}; "
+        f"libav {'found: the MP4 decoder is built' if libav else 'NOT found by pkg-config'}")
+    edir = os.path.join(eeg_root, "EAV", "subject01", "EEG")
+    for name, var in (("subject01_eeg.mat", "seg"), ("subject01_eeg_label.mat", "label")):
+        path = os.path.join(edir, name)
+        t0 = time.perf_counter()
+        got = native.read_mat_var(path, var)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = mat5.loadmat(path)[var]
+        t_python = time.perf_counter() - t0
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{name}: native {got.shape} != mat5 {want.shape}")
+        log(f"  {name} '{var}' {got.shape}: native {t_native * 1e3:.1f} ms, mat5 "
+            f"{t_python * 1e3:.1f} ms, equal, on {host}")
+    with tempfile.TemporaryDirectory() as root:
+        write_subject(root)
+        adir = os.path.join(root, "subject01", "Audio")
+        files = sorted(os.path.join(adir, f) for f in os.listdir(adir))
+        t0 = time.perf_counter()
+        with native.WavPrefetcher(n_threads=4) as pf:
+            for f in files:
+                pf.submit(f)
+            got = {path: (wave, sr) for path, wave, sr in pf}
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = {f: read_wav(f) for f in files}
+        t_python = time.perf_counter() - t0
+        for f in files:
+            if got[f][1] != want[f][1] or not np.array_equal(got[f][0], want[f][0]):
+                raise AssertionError(f"{f}: the prefetcher's decode differs from read_wav's")
+        log(f"  {len(files)} wavs of 20 s at 44.1 kHz: WavPrefetcher (4 threads) "
+            f"{t_native * 1e3:.1f} ms, read_wav {t_python * 1e3:.1f} ms, equal, on {host}")
+    if not libav:
+        log("  MP4: NOT checked: this machine has no ffmpeg development files, so the native "
+            "decoder is not built; video decoding on it waits for them (and it has no cv2)")
+        return
+    t0 = time.perf_counter()
+    frames = native.read_mp4_strided(str(FIXTURES / "clip.mp4"), STRIDE, FRAMES)
+    t_native = time.perf_counter() - t0
+    ref = np.load(FIXTURES / "clip_frames.npz")["frames"]
+    diff = np.abs(frames.astype(int) - ref.astype(int))
+    if frames.shape != ref.shape or diff.mean() >= 1.0 or np.percentile(diff, 99) > 4:
+        raise AssertionError(f"MP4 fixture: {frames.shape} against cv2's {ref.shape}, mean "
+                             f"|diff| {diff.mean() if diff.size else 'n/a'}")
+    log(f"  MP4 fixture {frames.shape}: native {t_native * 1e3:.1f} ms, against cv2's frames "
+        f"mean |diff| {diff.mean():.3f}, max {diff.max()}, on {host}")
+
+
+# -----------------------------------------------------------------------------
+# 24-25. data and tensor parallelism on the card
+# -----------------------------------------------------------------------------
+
+# Measured on the card (PERF.md §6): bf16 products of half batches and
+# of head shards round differently from the whole ones.
+# Vision at 2 gloo ranks against world 1, max |trial logit diff|: sound
+# 0.0074, the planted fault (no gradient sum) 0.40-1.09.
+DP_TOL = 0.05
+# The AST-base step at TP 2 against the unsharded one: sound loss 2.6e-3
+# relative and gradients 0.0078 of the largest entry; the contiguous-qkv
+# fault 2.1e-2 and 0.83.
+TP_LOSS_RTOL = 1e-2
+TP_GRAD_TOL = 0.05  # of the unsharded gradient's largest entry
+
+
+def dp_vision_preset():
+    """Phase 8's ``vit_finetune`` cut: 1 frozen + 1 unfrozen epoch, 30 train
+    / 10 test trials of 25 frames."""
+    import dataclasses
+
+    from eav_tpu_torch.core.config import PhaseConfig, get_preset
+
+    base = get_preset("vit_finetune")
+    return base.replace(
+        split=dataclasses.replace(base.split, h_idx=6),
+        finetune=dataclasses.replace(
+            base.finetune, phases=(PhaseConfig(epochs=1, lr=5e-4, freeze=True),
+                                   PhaseConfig(epochs=1, lr=5e-6, freeze=False))))
+
+
+def dp_vision_fit(root: str, logits: str, mesh):
+    """``run_vision(1)`` over phase 8's kind of frame cache under ``root``
+    with ``mesh`` -> (trial-voted test and train archives, losses, seconds)
+    on the rank that writes (None elsewhere)."""
+    import numpy as np
+    import torch
+
+    from eav_tpu_torch.parallel.distributed import rank_device
+    from eav_tpu_torch.train.loop import writes_files
+    from eav_tpu_torch.train.pipeline import ModalityPipelines
+
+    pipes = ModalityPipelines(os.path.join(root, "EAV"), cache_dir=os.path.join(root, "cache"),
+                              logits_dir=os.path.join(root, logits),
+                              presets={"vision": dp_vision_preset()},
+                              device=rank_device("cuda"), mesh=mesh)
+    t0 = time.perf_counter()
+    res = pipes.run_vision(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not writes_files():
+        return None
+    arch = {s: np.load(os.path.join(root, logits, f"s01_vision_{s}.npy")) for s in ("test", "train")}
+    return arch, res.artifacts["history"]["loss"].tolist(), wall
+
+
+def tp_step(model, x, y):
+    """Loss and gradients of one train-mode step."""
+    import torch
+
+    from eav_tpu_torch.train.loop import cross_entropy
+
+    model.train()
+    loss = cross_entropy(model(x), y)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
+
+
+def tp_error(grads, ref, rank: int, size: int, contiguous: bool = False) -> float:
+    """Max over leaves of |this rank's gradient - its shard of the unsharded
+    one| / the unsharded gradient's largest entry."""
+    from eav_tpu_torch.parallel import tp
+
+    scale = max(float(g.abs().max()) for g in ref.values())
+    worst = 0.0
+    for k, g in grads.items():
+        spec = tp.tp_spec(k)
+        if contiguous and spec is not None and "qkv" in k:
+            spec = (0, 1)
+        want = ref[k] if spec is None else tp.shard_tensor(ref[k], spec, rank, size)
+        worst = max(worst, float((g.float() - want.float()).abs().max()) / scale)
+    return worst
+
+
+def multi_card_rank(rank: int, root: str) -> dict:
+    """One of two gloo ranks on ``cuda:0``: the vision fine-tune
+    data-parallel over both, sound and with a planted fault (no gradient
+    sum: each rank steps on its own rows' gradient); then the full-width
+    AST-base unfrozen step tensor-parallel over both (6 heads a rank,
+    through K1-K3), against the unsharded step on the same rank, and the
+    contiguous-qkv fault."""
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.ops import attention as A
+    from eav_tpu_torch.parallel import tp
+    from eav_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+    from eav_tpu_torch.train.loop import DataShards
+    from eav_tpu_torch.train.pipeline import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    mesh = make_mesh(((DATA_AXIS, 2),), "cuda")
+    out["dp"] = dp_vision_fit(root, "dp2", mesh)
+    summed = DataShards.sum_grads_
+    DataShards.sum_grads_ = lambda self, model: None  # the planted fault
+    try:
+        out["dp_fault"] = dp_vision_fit(root, "dp2_fault", mesh)
+    finally:
+        DataShards.sum_grads_ = summed
+
+    preset = get_preset("ast_finetune")
+    x, y = step_inputs(preset)
+    full = build_model(preset).to("cuda")
+    ref_loss, ref = tp_step(full, x, y)
+    mesh2 = make_mesh(((MODEL_AXIS, 2),), "cuda")
+    model = tp.apply_tp(build_model(preset).to("cuda"), mesh2)
+    A.reset_launches()
+    loss, grads = tp_step(model, x, y)
+    launches = {fn.__name__: fn.launches for fn in (A.flash_fwd, A.flash_dkv, A.flash_dq)}
+    times = []
+    for _ in range(5):
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        tp_step(model, x, y)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["tp"] = {"loss": loss, "ref_loss": ref_loss, "err": tp_error(grads, ref, rank, 2),
+                 "launches": launches, "heads": model.encoder.layer_0.attn.heads,
+                 "step_ms": statistics.median(times)}
+    rules = tp._RULES
+    tp._RULES = tuple((rx, (0, 1) if "qkv" in rx else spec) for rx, spec in rules)
+    try:
+        bad = tp.apply_tp(build_model(preset).to("cuda"), mesh2)
+        bad_loss, bad_grads = tp_step(bad, x, y)
+        out["tp_fault"] = {"loss": bad_loss,
+                           "err": tp_error(bad_grads, ref, rank, 2, contiguous=True)}
+    finally:
+        tp._RULES = rules
+    return out
+
+
+def run_multi_card_phases(card: str, eeg_root: str) -> None:
+    """24: the EEGNet fit data-parallel at world size 1 over NCCL equals the
+    plain fit bit for bit (the deterministic mode); the vision fine-tune at
+    world size 1, then at two gloo ranks on ``cuda:0`` against it (and a
+    planted fault). 25: the tensor-parallel AST-base step (in the same two
+    ranks)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from eav_tpu_torch.parallel import distributed
+    from eav_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    from eav_tpu_torch.train.loop import Trainer
+    from eav_tpu_torch.train.pipeline import build_model
+
+    preset = eeg_presets()["eeg"]
+    rng = np.random.default_rng(24)
+    data = (rng.standard_normal((280, 30, 500)).astype(np.float32), np.arange(280) % 5,
+            rng.standard_normal((120, 30, 500)).astype(np.float32), np.arange(120) % 5)
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "cache"))
+        write_frame_cache(os.path.join(root, "cache"), dp_vision_preset())
+        distributed.init_multihost(f"127.0.0.1:{distributed.free_port()}", 1, 0, device="cuda")
+        try:
+            mesh = make_mesh(((DATA_AXIS, 1),), "cuda")
+            fits, secs = {}, {}
+            for name, m in (("plain", None), ("nccl", mesh)):
+                trainer = Trainer(build_model(preset), preset.finetune, device="cuda",
+                                  deterministic=True)
+                t0 = time.perf_counter()
+                fits[name] = trainer.fit(data, seed=1, mesh=m)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+            same = np.array_equal(fits["plain"].outputs_test, fits["nccl"].outputs_test) and all(
+                torch.equal(v, fits["nccl"].params[k]) for k, v in fits["plain"].params.items())
+            log(f"data-parallel EEGNet (eegnet_subject, 2 epochs, 280 / 120 trials) at NCCL "
+                f"world 1: {'equal to' if same else 'DIFFERS from'} the plain fit bit for bit "
+                f"(logits, weights, BatchNorm stats); {secs['nccl']:.2f} s against "
+                f"{secs['plain']:.2f} s (the first collective sets NCCL up) on {card}")
+            if not same:
+                raise AssertionError("the data-parallel fit at world 1 differs from the plain fit")
+            ref, ref_loss, ref_s = dp_vision_fit(root, "world1", mesh)
+        finally:
+            dist.destroy_process_group()
+        mark("24a. data parallelism at NCCL world 1")
+        t0 = time.perf_counter()
+        ranks = distributed.spawn(multi_card_rank, 2, root, device="cuda:0", backend="gloo",
+                                  timeout_s=600)
+        spawn_s = time.perf_counter() - t0
+    (arch, loss, wall), (bad, bad_loss, _) = ranks[0]["dp"], ranks[0]["dp_fault"]
+    err = {s: float(np.abs(arch[s] - ref[s]).max()) for s in ref}
+    bad_err = {s: float(np.abs(bad[s] - ref[s]).max()) for s in ref}
+    log(f"data-parallel run_vision (vit_finetune, ViT-base bf16, 750 train / 250 test frames, "
+        f"1 + 1 epochs) at 2 gloo ranks on cuda:0 against world 1: max |trial logit diff| "
+        f"test {err['test']:.3g}, train {err['train']:.3g} (tolerance {DP_TOL}); losses "
+        f"{loss} against {ref_loss}; planted fault (no gradient sum) {bad_err} "
+        f"(losses {bad_loss}); {wall:.1f} s against {ref_s:.1f} s at world 1 (gloo on one "
+        f"card: a fact of this check, not a speed of data parallelism) on {card}")
+    if max(err.values()) > DP_TOL:
+        raise AssertionError(f"data-parallel vision beyond {DP_TOL}: {err}")
+    if max(bad_err.values()) <= DP_TOL:
+        raise AssertionError(f"the check passed the planted fault: {bad_err}")
+    mark("24b. data parallelism at 2 gloo ranks")
+    for rank, r in enumerate(ranks):
+        t, f = r["tp"], r["tp_fault"]
+        log(f"tensor-parallel AST-base step (ast_finetune, bs 8, bf16, unfrozen) rank {rank} "
+            f"of 2 ({t['heads']} heads a rank): loss {t['loss']:.5f} against unsharded "
+            f"{t['ref_loss']:.5f}; max |grad diff| {t['err']:.3g} of the largest entry "
+            f"(tolerance loss rtol {TP_LOSS_RTOL}, grads {TP_GRAD_TOL}); contiguous-qkv fault "
+            f"loss {f['loss']:.5f}, grads {f['err']:.3g}; launches {t['launches']} at B*H "
+            f"{8 * t['heads']}; step {t['step_ms']:.1f} ms (gloo on one card: a fact of this "
+            f"check, not a speed of TP) on {card}")
+        if not all(n > 0 for n in t["launches"].values()):
+            raise AssertionError(f"rank {rank}: a flash kernel never launched: {t['launches']}")
+        if abs(t["loss"] - t["ref_loss"]) > TP_LOSS_RTOL * abs(t["ref_loss"]) \
+                or t["err"] > TP_GRAD_TOL:
+            raise AssertionError(f"rank {rank}: the TP step differs from the unsharded one")
+        if abs(f["loss"] - t["ref_loss"]) <= TP_LOSS_RTOL * abs(t["ref_loss"]) \
+                and f["err"] <= TP_GRAD_TOL:
+            raise AssertionError(f"rank {rank}: the check passed the contiguous-qkv fault")
+    log(f"the two gloo ranks on cuda:0 (DP vision twice, TP step): {spawn_s:.1f} s from the "
+        f"spawn on {card}")
+    time_tp_shard_kernels(card, 8 * ranks[0]["tp"]["heads"])
+    mark("25. tensor parallelism")
+
+
+def time_tp_shard_kernels(card: str, bh: int) -> None:
+    """K1-K3 at a TP rank's shape (B·H/2, T 1214, D 64, bf16), a call in a
+    run of 20 on the free card, beside their bound at that shape."""
+    import torch
+
+    from eav_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    q, k, v, do = (torch.randn(bh, T_AST, D, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = A.flash_fwd(q, k, v, T_AST)
+    di = (do.float() * o.float()).sum(-1)
+    calls = {"flash_fwd": lambda: A.flash_fwd(q, k, v, T_AST),
+             "flash_dkv": lambda: A.flash_dkv(q, k, v, do, lse, di, T_AST),
+             "flash_dq": lambda: A.flash_dq(q, k, v, do, lse, di, T_AST)}
+    bounds = kernel_bounds(T_AST)
+    log("K1-K3 at a TP rank's shape (BH " + str(bh) + f", T {T_AST}, D {D}, bf16), a call in a "
+        "run of 20: " + ", ".join(
+            f"{n} {cuda_ms_run(fn):.4f} ms (bound {bounds[n][0] * bh / (B * H):.4f} ms)"
+            for n, fn in calls.items()) + f" on {card}")
+
+
 def main() -> int:
     import tempfile
 
@@ -2529,6 +2878,16 @@ def main() -> int:
     mark("21. sweep")
     run_cli_phase(card, eeg_root.name, scnn_ms)
     mark("22. CLI")
+    run_native_phase(card, eeg_root.name)
+    mark("23. native ingest")
+    run_multi_card_phases(card, eeg_root.name)
+    from eav_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dryrun_multichip(2, "cuda")
+    log(f"dryrun_multichip(2, 'cuda'): {time.perf_counter() - t0:.1f} s (2 gloo ranks on "
+        f"cuda:0, the farm's 2 workers on cuda:0) on {card}")
+    mark("26. dry run")
     eeg_root.cleanup()
 
     kernels = []

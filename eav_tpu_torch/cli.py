@@ -13,8 +13,18 @@ JAX's: ``--device`` and ``--deterministic`` (torch's deterministic mode,
 set once for the whole run). ``--epochs-per-call`` and
 ``--epc-target-seconds`` are accepted so that a JAX command line runs
 unchanged, and change nothing: they cut one XLA program into device calls,
-and PyTorch runs eagerly. ``--data-parallel`` above 1 waits for the port of
-``parallel/mesh.py``.
+and PyTorch runs eagerly.
+
+``run --data-parallel N`` runs the sweep on N ranks, one card each
+(``cuda:0`` .. ``cuda:N-1``; with ``--device cpu``, N gloo ranks on the
+CPU): spawned here, or, under ``torchrun --nproc-per-node N``, this process
+is one of them. The vision fine-tunes split their batches over the ranks
+(``Trainer.fit(mesh=)``), as the JAX CLI's do; every other task runs whole
+on every rank, the same work each time. Every rank visits the same tasks in
+the same order, and a task that fails on any rank fails on all of them
+(``parallel/distributed.agreed``), so retries stay in step. Rank 0 alone
+writes the journal, ``metrics.jsonl``, the logits, checkpoints and a
+``--profile`` trace.
 """
 
 from __future__ import annotations
@@ -112,18 +122,73 @@ def _farm_devices(device, n: int):
 
 
 def cmd_run(args) -> int:
+    from eav_tpu_torch.core.device import resolve_device
+
+    if args.chip_parallel >= 1 and args.data_parallel > 1:
+        raise SystemExit(
+            "--chip-parallel and --data-parallel are mutually exclusive: the "
+            "farm gives each fine-tune a whole chip; DP shards one fine-tune "
+            "across chips")
+    device = resolve_device(args.device)
+    if args.data_parallel > 1:
+        return _run_data_parallel(args, device)
+    devices = _farm_devices(device, args.chip_parallel) if args.chip_parallel >= 1 else None
+    return _run(args, device, devices)
+
+
+def _run_data_parallel(args, device) -> int:
+    """``run --data-parallel N``: N ranks, spawned here (or this process
+    one of them under torchrun), each running ``_data_parallel_rank``."""
+    import torch
+
+    from eav_tpu_torch.parallel import distributed
+
+    n = args.data_parallel
+    if device.type == "cuda":
+        if device.index is not None:
+            raise SystemExit(f"--data-parallel {n} gives rank r the card cuda:r; pass "
+                             "--device cuda")
+        if torch.cuda.device_count() < n:
+            raise SystemExit(f"--data-parallel {n} requested but only "
+                             f"{torch.cuda.device_count()} devices are visible")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # torchrun's rank
+        if int(os.environ["WORLD_SIZE"]) != n:
+            raise SystemExit(f"--data-parallel {n} under torchrun with "
+                             f"{os.environ['WORLD_SIZE']} processes")
+        address = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+        distributed.init_multihost(address, n, int(os.environ["RANK"]), device=device.type)
+        try:
+            return _data_parallel_rank(int(os.environ["RANK"]), args)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    from eav_tpu_torch import cli  # by its package name, also under ``python -m``
+
+    picklable = argparse.Namespace(**{k: v for k, v in vars(args).items() if k != "fn"})
+    return distributed.spawn(cli._data_parallel_rank, n, picklable, device=device.type)[0]
+
+
+def _data_parallel_rank(rank: int, args) -> int:
+    """One rank of ``run --data-parallel N`` (its group joined): the sweep
+    over a data mesh of every rank."""
+    from eav_tpu_torch.parallel.distributed import rank_device
+    from eav_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    device = rank_device(args.device)
+    mesh = make_mesh(((DATA_AXIS, args.data_parallel),), device.type)
+    return _run(args, device, mesh=mesh)
+
+
+def _run(args, device, devices=None, mesh=None) -> int:
+    """The sweep of ``cmd_run`` on ``device``: over the farm's
+    ``devices``, or, with a data ``mesh``, as one of its ranks."""
     from eav_tpu_torch.core.config import SweepConfig
-    from eav_tpu_torch.core.device import deterministic_algorithms, resolve_device
+    from eav_tpu_torch.core.device import deterministic_algorithms
     from eav_tpu_torch.core.sweep import SweepRunner
+    from eav_tpu_torch.train.loop import writes_files
     from eav_tpu_torch.train.pipeline import ModalityPipelines
 
-    if args.data_parallel > 1:
-        raise SystemExit(
-            f"--data-parallel {args.data_parallel}: batch data-parallelism comes with the "
-            "port of parallel/mesh.py (ROADMAP Queue 1); run with --data-parallel 1, or "
-            "spread subjects over cards with --chip-parallel")
-    device = resolve_device(args.device)
-    devices = _farm_devices(device, args.chip_parallel) if args.chip_parallel >= 1 else None
     if args.deterministic:
         # cuBLAS reads it at the process's first product
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -140,6 +205,7 @@ def cmd_run(args) -> int:
             seed=args.seed,
             device=dev,
             deterministic=args.deterministic,
+            mesh=mesh,
         )
 
     pipelines = make_pipelines()
@@ -153,24 +219,35 @@ def cmd_run(args) -> int:
         resume=not args.no_resume,
         max_retries=args.max_retries,
     )
-    runner = SweepRunner(cfg, pipelines.task_fn)
+    agree = lambda fn: fn  # noqa: E731
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from eav_tpu_torch.parallel.distributed import agreed
+
+        agree = agreed
+    runner = SweepRunner(cfg, agree(pipelines.task_fn), writes=writes_files())
+    if mesh is not None:  # every rank has read the journal before rank 0 appends to it
+        dist.barrier()
     # one setting for the whole run, before any worker starts: the fits
     # inside hold it without toggling it (core/device.py)
     with deterministic_algorithms(args.deterministic):
-        if not args.profile:
-            return _run_sweep(args, cfg, runner, pipelines, make_pipelines, devices)
+        if not args.profile or not runner.writes:
+            return _run_sweep(args, cfg, runner, pipelines, make_pipelines, devices, agree)
         from eav_tpu_torch.utils.profiling import trace
 
         with trace(args.profile) as path:
-            rc = _run_sweep(args, cfg, runner, pipelines, make_pipelines, devices)
+            rc = _run_sweep(args, cfg, runner, pipelines, make_pipelines, devices, agree)
         print(f"[profile] torch.profiler trace written to {path}")
         return rc
 
 
-def _run_sweep(args, cfg, runner, pipelines, make_pipelines=None, devices=None) -> int:
+def _run_sweep(args, cfg, runner, pipelines, make_pipelines=None, devices=None,
+               agree=lambda fn: fn) -> int:
     """The stacked pass, the farm (with the stacked chunks spread over its
     workers' setups) when ``--chip-parallel`` is set, then the serial pass
-    over whatever is still pending, with prefetch."""
+    over whatever is still pending, with prefetch. ``agree`` wraps each
+    group's function (a data-parallel rank's: ``distributed.agreed``)."""
     stacked = [
         (mod, min(args.subject_parallel, cap))
         for mod, cap in _STACK_CAPS.items()
@@ -208,12 +285,14 @@ def _run_sweep(args, cfg, runner, pipelines, make_pipelines=None, devices=None) 
                           exclude_modalities=[m for m, _ in stacked], task_timeout_s=timeout)
     else:
         for mod, group in stacked:
-            runner.run_batched(mod, lambda subs, m=mod: pipelines.run_stacked(subs, m),
-                               group_size=group, prefetch_fn=pipelines.prefetch)
+            runner.run_batched(mod, agree(lambda subs, m=mod: pipelines.run_stacked(subs, m)),
+                               group_size=group, verbose=runner.writes,
+                               prefetch_fn=pipelines.prefetch)
     # everything still pending: the whole sweep in the default mode, or the
     # retries and fusion after a farm
-    runner.run(verbose=True, prefetch_fn=pipelines.prefetch)
-    print(json.dumps(runner.aggregate(), indent=2))
+    runner.run(verbose=runner.writes, prefetch_fn=pipelines.prefetch)
+    if runner.writes:
+        print(json.dumps(runner.aggregate(), indent=2))
     return 0
 
 
@@ -285,7 +364,7 @@ def main(argv=None) -> int:
     vd.add_argument("--modalities", default="eeg,audio,vision")
     vd.add_argument("--no-probe", action="store_true",
                     help="skip the first/middle/last video probe decodes per subject "
-                    "(needed where cv2 is missing)")
+                    "(needed where there is no video decoder: no libav build, no cv2)")
     vd.add_argument("--deep", action="store_true",
                     help="also walk EVERY Speaking clip's mp4 container header (no decode)")
     _add_overrides(vd)
@@ -309,7 +388,9 @@ def main(argv=None) -> int:
                      help="stack up to N subjects of a family into one program "
                      "(capped per family: _STACK_CAPS)")
     run.add_argument("--data-parallel", type=int, default=1,
-                     help="batch data-parallelism over N cards; above 1 not ported yet")
+                     help="N ranks, one card each (gloo ranks with --device cpu): the vision "
+                     "fine-tunes split their batches over them; spawned here, or one rank "
+                     "a process under torchrun")
     run.add_argument("--chip-parallel", type=int, default=0,
                      help="task farm: N device-bound workers run serial fits "
                      "concurrently, one card each (cuda:0..N-1); N=1 runs the farm "

@@ -8,7 +8,13 @@ farm over device-bound workers (``run_farmed``, ``parallel/farm.py``).
 - the metrics JSONL: one row per finished task (subject, modality,
   accuracy, weighted F1, samples/sec, wall-clock), ``aggregate`` over it;
 - each task's artifacts saved under ``checkpoint_dir`` (``core/checkpoint.py``);
-- task functions are pluggable, so tests run the machinery on stubs.
+- task functions are pluggable, so tests run the machinery on stubs;
+- a runner built with ``writes=False`` (the ranks after the first of a
+  data-parallel sweep, ``cli run --data-parallel N``) writes nothing: it
+  reads the journal once, when it is built, and keeps its records in
+  memory, so that it visits the tasks the writing runner visits, in the
+  same order, as long as every task's outcome is the same on every rank
+  (``parallel/distributed.agreed``).
 
 The records have the JAX package's keys and values, so either package
 resumes or aggregates the other's journal. Every journal and metrics append
@@ -77,12 +83,22 @@ def _append_jsonl(path: str, record: dict) -> None:
 
 
 class SweepRunner:
-    def __init__(self, cfg: SweepConfig, task_fn: TaskFn):
+    def __init__(self, cfg: SweepConfig, task_fn: TaskFn, writes: bool = True):
         self.cfg = cfg
         self.task_fn = task_fn
+        self.writes = writes
         # journal and metrics appends and the shared state's updates: the
         # farm runs tasks, and stacked setups, on several threads
         self._log_lock = threading.Lock()
+        # a runner that writes nothing keeps its journal here
+        self._journal = None if writes else self._read_journal()
+
+    def _read_journal(self) -> Dict[str, dict]:
+        state: Dict[str, dict] = {}
+        for rec in _read_jsonl(self.cfg.journal_path):
+            if "task" in rec:  # event records carry none
+                state[rec["task"]] = rec
+        return state
 
     def _task_id(self, subject: int, modality: str) -> str:
         return f"subject{subject:02d}_{modality}"
@@ -91,11 +107,7 @@ class SweepRunner:
         """The latest journal record of each task id, read under the log
         lock (a farm worker's stacked setup reads it while others append)."""
         with self._log_lock:
-            state: Dict[str, dict] = {}
-            for rec in _read_jsonl(self.cfg.journal_path):
-                if "task" in rec:  # event records carry none
-                    state[rec["task"]] = rec
-            return state
+            return self._read_journal() if self.writes else dict(self._journal)
 
     def pending_tasks(self) -> List[Tuple[int, str]]:
         """(subject, modality) of every task not done and not out of
@@ -114,9 +126,12 @@ class SweepRunner:
     def _record(self, tid: str, state: Dict[str, dict], rec: dict,
                 metrics: Optional[dict] = None) -> None:
         with self._log_lock:
-            if metrics is not None:
-                _append_jsonl(self.cfg.metrics_path, metrics)
-            _append_jsonl(self.cfg.journal_path, rec)
+            if not self.writes:
+                self._journal[tid] = rec
+            else:
+                if metrics is not None:
+                    _append_jsonl(self.cfg.metrics_path, metrics)
+                _append_jsonl(self.cfg.journal_path, rec)
             state[tid] = rec
 
     def _attempts(self, tid: str, state: Dict[str, dict]) -> int:
@@ -137,7 +152,7 @@ class SweepRunner:
             metrics = dict(result.metrics)
             metrics.update(subject=subject, modality=modality, wall_clock_s=round(wall, 3))
             metrics.update(extra or {})
-            if result.artifacts and self.cfg.checkpoint_dir:
+            if result.artifacts and self.cfg.checkpoint_dir and self.writes:
                 from eav_tpu_torch.core.checkpoint import save_pytree
 
                 save_pytree(os.path.join(self.cfg.checkpoint_dir, tid), result.artifacts)
@@ -366,7 +381,8 @@ class SweepRunner:
             "ts": time.time(),
         }
         with self._log_lock:
-            _append_jsonl(self.cfg.metrics_path, summary)
+            if self.writes:
+                _append_jsonl(self.cfg.metrics_path, summary)
         if verbose and summary["n_tasks"]:
             busy = sum(pw["busy_s"] for pw in per_worker)
             print(f"[farm] {summary['n_tasks']} tasks over {len(workers)} workers: makespan "

@@ -5,7 +5,9 @@ Behaviour of the reference ``DataLoadAudio`` (`Dataload_audio.py:10-78`), as
 ``eav_tpu/ingest/audio.py`` implements it: per subject, list the Audio dir,
 parse the emotion from filename token 4, decode, resample to the target rate,
 cut 5 s segments (4 per 20 s file), map labels {Neutral:0, Sadness:1, Anger:2,
-Happiness:3, Calmness:4}. Decoding is the pure-Python RIFF reader;
+Happiness:3, Calmness:4}. A subject's wavs are decoded by the native
+library's threaded queue (``ingest/native.WavPrefetcher``; the pure-Python
+RIFF reader on a host without a C++ compiler) and kept in dataset order;
 resampling and the frontends run on the loader's device.
 """
 
@@ -20,6 +22,7 @@ import torch
 
 from eav_tpu_torch.core.config import EMOTION_TO_INDEX, AudioPreprocConfig
 from eav_tpu_torch.core.device import resolve_device
+from eav_tpu_torch.ingest import native
 from eav_tpu_torch.ingest.wav import read_wav
 from eav_tpu_torch.ops.signal import resample_poly
 from eav_tpu_torch.ops.spectral import ast_features, scnn180_features
@@ -79,7 +82,14 @@ class DataLoadAudio:
         the SCNN frontend takes ``scnn_sr``)."""
         target_sr = target_sr or self.cfg.target_sr
         files, emotions = self.data_files()
-        pairs = [read_wav(f) for f in files]
+        if files and native.available():  # the native threaded queue
+            with native.WavPrefetcher(n_threads=4) as pf:
+                for f in files:
+                    pf.submit(f)
+                decoded = {path: (wave, sr) for path, wave, sr in pf}
+            pairs = [decoded[f] for f in files]  # back in dataset order
+        else:
+            pairs = [read_wav(f) for f in files]
         waves = [w[0] for w, _ in pairs]
         srs = [sr for _, sr in pairs]
         # resample per sample-rate group, then restore the ORIGINAL file

@@ -14,7 +14,9 @@ The F-order reshapes (SURVEY.md §7.3's parity hazard) are explicit C-order
 permutes. Labels are remapped to their position in ``selected_classes``, as
 the reference's Keras path and its published pickles have them (its torch
 path leaves the raw one-hot rows {1,3,5,7,9}, `Dataload_eeg.py:152`).
-The .mat files are read by the pure-Python ``mat5`` reader.
+The .mat files are read by the native library (``ingest/native.py``; the
+pure-Python ``mat5`` reader on a host without a C++ compiler), which
+tries ``seg1`` before ``seg``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from eav_tpu_torch.core.config import EEGPreprocConfig
 from eav_tpu_torch.core.device import resolve_device
-from eav_tpu_torch.ingest import mat5
+from eav_tpu_torch.ingest import mat5, native
 from eav_tpu_torch.ops.signal import bandpass_sos, resample_poly
 
 
@@ -90,6 +92,19 @@ def select_classes(data: np.ndarray, onehot: np.ndarray,
     return np.transpose(np.asarray(data)[:, :, mask], (2, 0, 1)), labels
 
 
+def _native_signal(path: str) -> np.ndarray:
+    """The ``seg1`` variable of a subject's .mat, else its ``seg`` (some
+    subjects use 'seg1', `Dataload_eeg.py:71-74`). Any error but a missing
+    variable raises at once."""
+    for name in ("seg1", "seg"):
+        try:
+            return native.read_mat_var(path, name)
+        except IOError as e:
+            if "variable not found" not in str(e):
+                raise
+    raise KeyError(f"{path}: no 'seg'/'seg1' variable")
+
+
 class DataLoadEEG:
     """Per-subject EEG loader with the reference's interface
     (`Dataload_eeg.py:154-160`): ``prepare_data() -> (x, y)`` as numpy, the
@@ -119,11 +134,15 @@ class DataLoadEEG:
         """(seg (ch, t, tri), one-hot label (rows, tri)) from the subject's
         two .mat files."""
         eeg_path, label_path = self._paths()
-        mat = mat5.loadmat(eeg_path)
-        cnt = mat.get("seg1", mat.get("seg"))  # some subjects use 'seg1' (`:71-74`)
-        if cnt is None:
-            raise KeyError(f"{eeg_path}: no 'seg'/'seg1' variable")
-        label = mat5.loadmat(label_path)["label"]
+        if native.available():
+            cnt = _native_signal(eeg_path)
+            label = native.read_mat_var(label_path, "label")
+        else:
+            mat = mat5.loadmat(eeg_path)
+            cnt = mat.get("seg1", mat.get("seg"))
+            if cnt is None:
+                raise KeyError(f"{eeg_path}: no 'seg'/'seg1' variable")
+            label = mat5.loadmat(label_path)["label"]
         # (t, ch, tri) -> (ch, t, tri)  (`Dataload_eeg.py:82`)
         return np.transpose(cnt, (1, 0, 2)), label
 

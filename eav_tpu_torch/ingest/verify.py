@@ -23,9 +23,9 @@ and checks every layout/shape/label invariant the ingest layer depends on:
 Shape checks PEEK at headers (incremental zlib for compressed .mat elements,
 fmt-chunk-only WAV reads) — verifying 42 subjects costs seconds, not a full
 ingest pass. The video probe decodes through ``ingest/video.py``'s
-``decode_strided_frames`` (cv2): on a machine without cv2 every probe is a
-decode error in the report, so run with ``probe_video=False`` (``verify-data
---no-probe``) there.
+``decode_strided_frames`` (the native libav decoder, else cv2): on a machine
+with neither every probe is a decode error in the report, so run with
+``probe_video=False`` (``verify-data --no-probe``) there.
 """
 
 from __future__ import annotations

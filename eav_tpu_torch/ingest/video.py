@@ -4,10 +4,10 @@ the host code of ``eav_tpu/ingest/video.py`` (reference ``DataLoadVision``,
 600 (100 frames per 20 s clip), grouped 25 frames = 5 s per sample, labels
 from filename token 4.
 
-Decoding goes through cv2 (the JAX package's native libav reader is a later
-slice), imported inside the functions that use it: a machine without cv2 can
-import this module, and crop and resize without it (``resize_linear_u8``
-computes cv2's resize bit for bit). Face crops: a ``face_cropper`` when one
+Decoding goes through the native library's libav decoder when it was built
+with libav, else through cv2, imported inside the function that uses it: a
+machine without either can import this module, and crop and resize without
+them (``resize_linear_u8`` computes cv2's resize bit for bit). Face crops: a ``face_cropper`` when one
 is given, else MTCNN (``models/mtcnn.py``) on the loader's device when
 ``EAV_TPU_MTCNN_WEIGHTS`` names its weights, else the square center crop
 resized to ``face_image_size`` (what the JAX package does without weights).
@@ -23,13 +23,36 @@ import numpy as np
 
 from eav_tpu_torch.core.config import EMOTION_TO_INDEX, VisionPreprocConfig
 from eav_tpu_torch.core.device import resolve_device
+from eav_tpu_torch.ingest import native
 from eav_tpu_torch.ops.image import resize_linear_u8
 
 
-def decode_strided_frames(path: str, stride: int = 6, max_frames: int = 600) -> List[np.ndarray]:
+VIDEO_BACKENDS = ("auto", "native", "cv2")
+
+
+def decode_strided_frames(path: str, stride: int = 6, max_frames: int = 600,
+                          backend: str = "auto") -> List[np.ndarray]:
     """RGB frames 0, stride, 2*stride, ... < max_frames (reference
-    `Dataload_vision.py:49-62`); skipped frames are only ``grab()``-ed."""
-    import cv2
+    `Dataload_vision.py:49-62`).
+
+    ``backend``: ``'native'`` is the native library's libav decoder
+    (``ingest/native.read_mp4_strided``: no GIL, only the kept frames
+    converted); ``'cv2'`` the cv2 loop, whose skipped frames are only
+    ``grab()``-ed; ``'auto'`` the native decoder when the library has libav,
+    else cv2 when it imports, else it raises. A native decode error raises:
+    the JAX package warns and retries the file with cv2."""
+    if backend not in VIDEO_BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {VIDEO_BACKENDS}")
+    if backend == "native" or (backend == "auto" and native.mp4_supported()):
+        return list(native.read_mp4_strided(path, stride, max_frames))
+    try:
+        import cv2
+    except ImportError:
+        if backend == "cv2":
+            raise
+        raise RuntimeError(f"no video decoder for {path}: the native ingest library has "
+                           "no libav (build it with the ffmpeg development files) and "
+                           "cv2 is not installed") from None
 
     cap = cv2.VideoCapture(path)
     frames: List[np.ndarray] = []

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eav_tpu_torch.models.dropout import Dropout
+from eav_tpu_torch.models.norm import BatchNorm2d
 from eav_tpu_torch.models.transformer import lecun_normal
 
 
@@ -88,7 +89,7 @@ class ConformerEEG(nn.Module):
             self.spatial_proj = nn.Parameter(torch.empty(filters, chans))
             self.layers = nn.ModuleList(
                 PostNormLayer(filters, drop=dropout) for _ in range(num_layers))
-            self.bn = nn.BatchNorm2d(filters, eps=1e-5, momentum=0.1)
+            self.bn = BatchNorm2d(filters, eps=1e-5, momentum=0.1)
             self.drop = Dropout(dropout)
             self.head = nn.Linear(pooled * filters, nb_classes, bias=False)  # 65 * 40 = 2600
         self.to_empty(device="cpu")

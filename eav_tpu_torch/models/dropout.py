@@ -14,6 +14,13 @@ subject's own generator, and handed in as the ``mask`` buffer (a bool tensor
 of the input's shape) through ``functional_call``; a Dropout with a mask
 uses it and draws nothing. :func:`record_dropouts` finds, for a batch, which
 Dropouts a forward draws for and at what shapes, in the forward's order.
+
+A data-parallel fit (``Trainer.fit(mesh=)``) gives each rank some rows of
+every batch. There each Dropout's ``rows`` (:func:`set_rows`) names them:
+the mask is drawn for the whole batch, as the one-process fit draws it, from
+the generator every rank seeded alike, and the rank keeps its rows, so each
+row gets the mask it gets in the one-process fit. The model ranks of a
+tensor-parallel encoder draw the same masks (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ class Dropout(nn.Module):
         self.generator: Optional[torch.Generator] = None  # None: the global RNG
         self.register_buffer("mask", None, persistent=False)  # set only by functional_call
         self.record: Optional[List[Tuple["Dropout", torch.Size]]] = None
+        self.rows: Optional[Tuple[int, int, int]] = None  # (lo, hi, batch): set_rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -46,8 +54,16 @@ class Dropout(nn.Module):
 
     def draw(self, shape, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """A keep-mask for an input of ``shape``, from ``generator`` (default
-        this Dropout's)."""
-        return torch.rand(shape, generator=generator or self.generator, device=device) >= self.p
+        this Dropout's); with ``rows`` (lo, hi, n), rows lo:hi of the mask of
+        the whole batch of n rows."""
+        gen = generator or self.generator
+        if self.rows is None:
+            return torch.rand(shape, generator=gen, device=device) >= self.p
+        lo, hi, n = self.rows
+        if shape[0] != hi - lo:
+            raise ValueError(f"a Dropout input of {shape[0]} rows, not the batch's {hi - lo}: "
+                             "a split batch needs the batch on the first axis")
+        return (torch.rand((n, *shape[1:]), generator=gen, device=device) >= self.p)[lo:hi]
 
     def needs_mask(self) -> bool:
         """Whether a call now would draw a mask of its own."""
@@ -62,6 +78,14 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> Non
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_rows(model: nn.Module, rows: Optional[Tuple[int, int, int]]) -> None:
+    """Every :class:`Dropout` in ``model`` keeps rows ``lo:hi`` of the masks
+    of a batch of ``n`` rows (``rows`` = (lo, hi, n); None: the whole input)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rows = rows
 
 
 def record_dropouts(model: nn.Module, forward: Callable[[], object]) -> List[Tuple[str, torch.Size]]:

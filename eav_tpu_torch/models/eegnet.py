@@ -18,7 +18,7 @@ reference's ``renorm_`` hooks, `EEGNet_tor.py:33-34,47-48`) are
 ``maxnorm_rules``, applied by the trainer after every optimizer step
 (``core/optim.maxnorm_project``).
 
-BatchNorm is torch's own (``nn.BatchNorm2d``, momentum 0.1 = Flax's 0.9,
+BatchNorm is torch's own (``models/norm.BatchNorm2d``, momentum 0.1 = Flax's 0.9,
 eps 1e-5): the biased batch variance normalises, the unbiased one updates
 ``running_var``, which is the JAX package's ``TorchBatchNorm``. It runs in
 float32 on the channel axis, the axis JAX normalises in NHWC.
@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eav_tpu_torch.models.dropout import Dropout
+from eav_tpu_torch.models.norm import BatchNorm2d
 from eav_tpu_torch.models.transformer import lecun_normal
 
 SEPARABLE_MODES = ("single", "true")
@@ -100,7 +101,7 @@ class EEGNet(nn.Module):
         self.temporal_mode = temporal_mode
         self.dropout = dropout_rate
         fd = f1 * d
-        bn = lambda n: nn.BatchNorm2d(n, eps=1e-5, momentum=0.1)  # noqa: E731
+        bn = lambda n: BatchNorm2d(n, eps=1e-5, momentum=0.1)  # noqa: E731
         with torch.device("meta"):  # allocate once, below, without touching the global RNG
             self.conv_temporal = nn.Conv2d(1, f1, (1, kern_length), bias=False)
             self.bn_temporal = bn(f1)

@@ -13,7 +13,7 @@
 - global average pool, ``cls_fc1`` 2048 -> 1024, ReLU, ``cls_fc2``.
 
 Input (B, H, W, 3) NHWC, as in the JAX package. BatchNorm is torch's own
-(momentum 0.1, eps 1e-5: unbiased running variance, the JAX package's
+(``models/norm.BatchNorm2d``, momentum 0.1, eps 1e-5: unbiased running variance, the JAX package's
 ``TorchBatchNorm``), in its parameters' dtype whatever ``compute_dtype``:
 float32 as built; a model cast with ``.double()`` runs in float64 throughout
 but for the logits, which are float32 as in the JAX package. The freeze
@@ -31,12 +31,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from eav_tpu_torch.models.transformer import dense, lecun_normal
+from eav_tpu_torch.models.norm import BatchNorm2d
 
 STAGES = (3, 4, 6, 3)
 
 
-def _bn(n: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(n, eps=1e-5, momentum=0.1)
+def _bn(n: int) -> BatchNorm2d:
+    return BatchNorm2d(n, eps=1e-5, momentum=0.1)
 
 
 class Bottleneck(nn.Module):

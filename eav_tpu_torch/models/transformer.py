@@ -18,6 +18,14 @@ longer exists, and with the module's own parameters, not the ones
 ``functional_call`` swapped in. A stacked fit hands each Dropout its mask;
 a serial one draws the sublayer's mask once, before the forward, so that
 the recompute applies the same mask.
+
+A layer made tensor-parallel by ``parallel/tp.py`` holds its shard of the
+heads and of the MLP's hidden units and the ``tp_group`` of its model axis;
+its sublayers then issue Megatron's two collectives (``_EnterTP`` at the
+entry of the column-parallel qkv and fc1, ``_ReduceTP`` after the
+row-parallel out and fc2, whose bias is added once, after the sum). They
+run inside the rematted sublayer, so a recompute runs them again, on every
+rank in the same order.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call, vjp
@@ -50,6 +59,56 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: Optional[torch.dtype]) -> to
     their promoted type when None); parameters stay float32."""
     dtype = dtype or torch.promote_types(x.dtype, layer.weight.dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class _EnterTP(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the model axis
+    (each rank's heads or hidden units give a part of it)."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.float()  # summed in float32, whatever the activations' dtype
+        dist.all_reduce(total, group=ctx.group)
+        return total.to(grad.dtype), None
+
+
+class _ReduceTP(torch.autograd.Function):
+    """Sums the ranks' partial outputs over the model axis; the backward is
+    the identity (the output, and so its gradient, is replicated).
+    ``torch.distributed.nn.functional.all_reduce`` would all-reduce that
+    replicated gradient again, multiplying it by the axis's size."""
+
+    @staticmethod
+    def forward(x, group):
+        total = x.clone()
+        dist.all_reduce(total, group=group)
+        return total
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: Optional[torch.dtype],
+                 group) -> torch.Tensor:
+    """``dense`` of a layer whose input columns are split over ``group``:
+    each rank's partial product, summed over the ranks in float32, then the
+    bias, once."""
+    dtype = dtype or torch.promote_types(x.dtype, layer.weight.dtype)
+    partial = F.linear(x.to(dtype), layer.weight.to(dtype)).float()
+    return (_ReduceTP.apply(partial, group) + layer.bias.float()).to(dtype)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -88,13 +147,17 @@ class MultiHeadSelfAttention(nn.Module):
     def __init__(self, hidden: int, heads: int, attn_impl: str = "math",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.hidden, self.heads, self.attn_impl, self.dtype = hidden, heads, attn_impl, dtype
+        self.heads, self.attn_impl, self.dtype = heads, attn_impl, dtype
+        self.head_dim = hidden // heads
         self.qkv = nn.Linear(hidden, 3 * hidden)
         self.out = nn.Linear(hidden, hidden)
+        self.tp_group = None  # parallel/tp.py: this rank holds ``heads`` of the layer's
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
-        d = self.hidden // self.heads
+        d = self.head_dim
+        if self.tp_group is not None:
+            x = _EnterTP.apply(x, self.tp_group)
         q, k, v = dense(x, self.qkv, self.dtype).view(b, t, 3, self.heads, d).unbind(2)
         if resolve_attn_impl(self.attn_impl, x) == "flash":
             ctx = flash_attention(q, k, v)
@@ -104,7 +167,10 @@ class MultiHeadSelfAttention(nn.Module):
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / root
             probs = torch.softmax(scores, dim=-1)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return dense(ctx.reshape(b, t, self.hidden), self.out, self.dtype)
+        ctx = ctx.reshape(b, t, self.heads * d)
+        if self.tp_group is not None:
+            return row_parallel(ctx, self.out, self.dtype, self.tp_group)
+        return dense(ctx, self.out, self.dtype)
 
 
 class Remat(torch.autograd.Function):
@@ -173,9 +239,14 @@ class TransformerLayer(nn.Module):
         return self.drop_attn(self.attn(layer_norm(x, self.ln1, self.dtype)))
 
     def _mlp_block(self, x: torch.Tensor) -> torch.Tensor:
-        z = dense(layer_norm(x, self.ln2, self.dtype), self.fc1, self.dtype)
-        z = dense(F.gelu(z, approximate="none"), self.fc2, self.dtype)
-        return self.drop_mlp(z)
+        z = layer_norm(x, self.ln2, self.dtype)
+        group = self.attn.tp_group  # parallel/tp.py: the MLP's hidden units are split too
+        if group is not None:
+            z = _EnterTP.apply(z, group)
+        z = F.gelu(dense(z, self.fc1, self.dtype), approximate="none")
+        if group is not None:
+            return self.drop_mlp(row_parallel(z, self.fc2, self.dtype, group))
+        return self.drop_mlp(dense(z, self.fc2, self.dtype))
 
     def _remat(self, block: str, x: torch.Tensor) -> torch.Tensor:
         tensors = {}

@@ -35,10 +35,14 @@ Each subject keeps ``Trainer.fit``'s contract at its own seed:
   subject's accuracies are means over its batches (``Trainer._train_acc``,
   ``_test_acc``).
 
-The JAX package's TPU and XLA workarounds are left out: ``mesh`` and
-``_mesh_for`` (a stack lives on one card; several cards run the task farm
-of ``parallel/farm.py``), and ``epochs_per_call``, ``epc_target_seconds`` and
-``_quantize_chunk`` (they chunk one XLA program to bound a call's time).
+``mesh`` with a ``subject`` axis (``parallel/mesh.py``): each rank of the
+axis fits its contiguous share of the stack (5 subjects over 2 ranks: 3 and
+2), with no communication during the fit, and the axis's first rank
+gathers the shares in subject order: the same result as one process's
+stack. The JAX package's ``_mesh_for`` (which shrinks an automatic mesh
+until its axis divides the stack) is not needed for that, and its TPU and
+XLA workarounds are left out: ``epochs_per_call``, ``epc_target_seconds``
+and ``_quantize_chunk`` (they chunk one XLA program to bound a call's time).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call, stack_module_state, vmap
@@ -57,6 +62,7 @@ from eav_tpu_torch.core.config import FinetuneConfig
 from eav_tpu_torch.core.device import deterministic_algorithms
 from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, maxnorm_project, trainable_mask
 from eav_tpu_torch.models.dropout import record_dropouts, set_generator
+from eav_tpu_torch.parallel.mesh import SUBJECT_AXIS, axis_group, axis_index, axis_size, share
 from eav_tpu_torch.train.loop import KERNEL_MODULES, Trainer
 
 
@@ -95,11 +101,13 @@ class Stack:
 class SubjectParallelTrainer:
     """Stacked fits of ``model`` (any model ``Trainer`` takes) under one
     ``FinetuneConfig``, on ``device`` (``"cuda"`` unless the caller passes
-    another); ``deterministic`` as for ``Trainer``."""
+    another); ``deterministic`` as for ``Trainer``; ``mesh``: a share of the
+    stack a rank of its ``subject`` axis (the module docstring)."""
 
     def __init__(self, model: nn.Module, cfg: FinetuneConfig, head_regex: str = HEAD_REGEX,
-                 device="cuda", deterministic: bool = False):
+                 device="cuda", deterministic: bool = False, mesh=None):
         self.inner = Trainer(model, cfg, head_regex, device, deterministic)
+        self.mesh = mesh
         self.model = self.inner.model  # the module functional_call runs
         set_generator(self.model, None)  # a stacked forward draws no mask itself
         self.cfg = cfg
@@ -207,9 +215,37 @@ class SubjectParallelTrainer:
         """``data`` = (tr_x, tr_y, te_x, te_y), each stacked (S, n, ...);
         subject s is fit at ``seeds[s]`` (default s). ``init_params``: a
         stacked, possibly partial state_dict (e.g. one checkpoint broadcast
-        to every subject)."""
-        with deterministic_algorithms(self.inner.deterministic):
-            return self._fit(data, seeds, init_params)
+        to every subject).
+
+        With a ``subject`` axis in the trainer's ``mesh``, every rank of the
+        axis calls this on the whole stack and fits its share; the axis's
+        first rank returns the whole result, the others None."""
+        group = axis_group(self.mesh, SUBJECT_AXIS)
+        if group is None:
+            with deterministic_algorithms(self.inner.deterministic):
+                return self._fit(data, seeds, init_params)
+        n_subjects = len(data[0])
+        seeds = list(seeds) if seeds is not None else list(range(n_subjects))
+        lo, hi = share(n_subjects, axis_size(self.mesh, SUBJECT_AXIS),
+                       axis_index(self.mesh, SUBJECT_AXIS))
+        part = None
+        if hi > lo:
+            with deterministic_algorithms(self.inner.deterministic):
+                part = self._fit(tuple(a[lo:hi] for a in data), seeds[lo:hi],
+                                 None if init_params is None
+                                 else {k: v[lo:hi] for k, v in init_params.items()})
+        first = dist.get_global_rank(group, 0)
+        parts = [None] * dist.get_world_size(group) if dist.get_rank() == first else None
+        dist.gather_object(part, parts, dst=first, group=group)
+        if parts is None:
+            return None
+        parts = [p for p in parts if p is not None]  # subject order: the ranks' order
+        kept = (np.concatenate([p.epoch_logits for p in parts])
+                if parts[0].epoch_logits is not None else None)
+        return StackedResult(
+            {k: torch.cat([p.params[k] for p in parts]) for k in parts[0].params},
+            {k: np.concatenate([p.history[k] for p in parts]) for k in parts[0].history},
+            np.concatenate([p.outputs_test for p in parts]), kept)
 
     def _fit(self, data, seeds, init_params) -> StackedResult:
         cfg = self.cfg

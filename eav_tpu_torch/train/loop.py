@@ -35,6 +35,27 @@ Protocol, as in the JAX trainer and the reference (`Transformer_Audio.py`):
   configuration; a rerun resumes after the last phase written, and refuses
   a directory written under another configuration.
 
+``fit(mesh=)`` is data parallelism over the mesh's ``data`` axis (the JAX
+trainer's ``mesh``, `Transformer_Vision.py:82-83`'s ``nn.DataParallel``):
+each rank runs the same fit on its contiguous share of every batch
+(``DataShards``) and the fit equals the one-process fit (to roundoff):
+
+- every rank draws the same batch order from the same seeded generator;
+  the last partial batch splits unevenly (5 rows over 2 ranks: 3 and 2);
+- each rank's loss is its rows' share of the global batch's mean
+  (mean · local rows / batch rows; the l1/l2 penalty on the first rank
+  only), and the gradients are all-reduced as a SUM: the global batch's
+  gradient, whatever the shares (DDP's default, the mean of local means,
+  weighs the rows of a smaller share more);
+- dropout masks are drawn for the whole batch and each rank keeps its rows
+  (``models/dropout.set_rows``); BatchNorm normalises by the global batch's
+  statistics (``models/norm.BatchNorm2d``);
+- parameters and Adam state start equal (the same seed) and stay equal
+  (the same summed gradient, the same max-norm); the frozen-feature cache
+  and every evaluation compute each rank's share of the rows and
+  all-gather them, so every rank holds the same logits;
+- only the group's rank 0 writes ``checkpoint_dir``.
+
 PyTorch runs eagerly, so the JAX trainer's XLA and TPU devices (phase
 programs compiled with ``lax.scan``, chunked epochs, device placement
 helpers) have no counterpart. Evaluation slices the last batch instead of
@@ -47,17 +68,20 @@ import hashlib
 import json
 import os
 from dataclasses import asdict
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from eav_tpu_torch.core.config import FinetuneConfig
 from eav_tpu_torch.core.device import deterministic_algorithms, resolve_device
 from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, maxnorm_project, set_trainable
-from eav_tpu_torch.models.dropout import set_generator
+from eav_tpu_torch.models.dropout import set_generator, set_rows
+from eav_tpu_torch.models.norm import set_group
+from eav_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_index, axis_size, share
 
 
 class TrainResult(NamedTuple):
@@ -78,6 +102,62 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if compat_softmax:
         z = z.softmax(-1)
     return F.cross_entropy(z, labels)
+
+
+def writes_files() -> bool:
+    """Whether this process writes a fit's files: no process group, or its
+    rank 0."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+class DataShards:
+    """A fit's share of the mesh's ``data`` axis: this rank's ``index`` of
+    ``size`` and the axis's ``group``. Without a mesh (or without a data
+    axis) one shard holds everything and nothing is communicated."""
+
+    def __init__(self, mesh=None):
+        self.group = axis_group(mesh, DATA_AXIS)
+        self.size = axis_size(mesh, DATA_AXIS)
+        self.index = axis_index(mesh, DATA_AXIS)
+
+    def rows(self, n: int):
+        """(lo, hi): this rank's contiguous rows of a batch of ``n``."""
+        return share(n, self.size, self.index)
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the axis, in place."""
+        if self.group is not None:
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def sum_grads_(self, model: nn.Module) -> None:
+        """Every parameter's gradient summed over the axis, one all-reduce a
+        dtype."""
+        if self.group is None:
+            return
+        by_dtype: Dict[torch.dtype, list] = {}
+        for p in model.parameters():
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = self.sum_(torch.cat([g.reshape(-1) for g in grads]))
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+
+    def gather(self, fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        """``fn(x)`` for a row-wise ``fn``: each rank computes its share of
+        the rows and every rank gets all of them, in order."""
+        if self.group is None:
+            return fn(x)
+        lo, hi = self.rows(len(x))
+        part = fn(x[lo:hi]) if hi > lo else fn(x[:1])[:0]
+        pad = -(-len(x) // self.size)  # the longest share
+        buf = torch.zeros((pad, *part.shape[1:]), dtype=part.dtype, device=part.device)
+        buf[: len(part)] = part
+        parts = [torch.empty_like(buf) for _ in range(self.size)]
+        dist.all_gather(parts, buf, group=self.group)
+        counts = [hi - lo for lo, hi in (share(len(x), self.size, i) for i in range(self.size))]
+        return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 
 KERNEL_MODULES = (nn.Linear, nn.modules.conv._ConvNd)
@@ -111,6 +191,7 @@ class Trainer:
         self.head_regex = head_regex
         self.deterministic = deterministic
         self.maxnorm_rules = tuple(getattr(model, "maxnorm_rules", ()))
+        self._shards = DataShards()  # a fit's (fit(mesh=)); one shard outside a fit
 
     def _frozen_cache_ok(self) -> bool:
         """A frozen phase may run on cached backbone features only when that
@@ -164,17 +245,25 @@ class Trainer:
         return self._batched_apply(self._to_device(x), batch_size, "features")
 
     def train_step(self, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor,
-                   mode: str = "full"):
+                   mode: str = "full", batch_rows: Optional[int] = None):
         """One optimizer step on one batch, in the mode (train or eval) the
         model is in, then the max-norm projection -> (loss, correct count),
-        both still on the device."""
+        both still on the device. In a data-parallel fit ``x`` is this
+        rank's share of a batch of ``batch_rows`` rows: the loss is the
+        share's part of the batch's mean, and the gradients are summed over
+        the data axis before the step."""
         cfg = self.cfg
         logits = self._apply(x, mode)
         loss = cross_entropy(logits, y, cfg.compat_softmax)
-        if cfg.l1_reg or cfg.l2_reg:  # Keras l1_l2 (the audio notebook's SCNN)
+        n, total = len(y), batch_rows or len(y)
+        if total != n:  # a share of the batch: sum over ranks = the batch's mean
+            loss = loss * (n / total) if n else logits.sum() * 0.0
+        if (cfg.l1_reg or cfg.l2_reg) and self._shards.index == 0:
+            # Keras l1_l2 (the audio notebook's SCNN), once over the data axis
             loss = loss + kernel_penalty(self.model, cfg.l1_reg, cfg.l2_reg)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        self._shards.sum_grads_(self.model)
         opt.step()
         if self.maxnorm_rules:
             maxnorm_project(self.model, self.maxnorm_rules)
@@ -216,7 +305,7 @@ class Trainer:
 
     def fit(self, data, seed: Optional[int] = None,
             init_params: Optional[Dict[str, torch.Tensor]] = None,
-            checkpoint_dir: Optional[str] = None) -> TrainResult:
+            checkpoint_dir: Optional[str] = None, mesh=None) -> TrainResult:
         """``data`` = (tr_x, tr_y, te_x, te_y), arrays or tensors. The model
         is re-initialized from ``seed`` (default ``cfg.seed``);
         ``init_params`` (a possibly partial state_dict, e.g. pretrained
@@ -228,9 +317,21 @@ class Trainer:
         fit that finds phases saved resumes after the last one; its history
         then holds the phases it ran (none: one NaN loss and the restored
         model's test accuracy). A directory written under another
-        configuration or split shape raises ``ValueError``."""
-        with deterministic_algorithms(self.deterministic):
-            return self._fit(data, seed, init_params, checkpoint_dir)
+        configuration or split shape raises ``ValueError``.
+
+        ``mesh`` (``parallel/mesh.make_mesh``) with a ``data`` axis: every
+        rank of the axis calls ``fit`` on the same data and seed, and fits
+        its share of each batch (the module docstring); every rank returns
+        the same result."""
+        self._shards = DataShards(mesh)
+        set_group(self.model, self._shards.group)
+        try:
+            with deterministic_algorithms(self.deterministic):
+                return self._fit(data, seed, init_params, checkpoint_dir)
+        finally:
+            self._shards = DataShards()
+            set_group(self.model, None)
+            set_rows(self.model, None)
 
     def _phase_state(self, opt: torch.optim.Optimizer, gen: torch.Generator,
                      dropout_gen: torch.Generator) -> dict:
@@ -260,6 +361,7 @@ class Trainer:
         tr_y = torch.as_tensor(np.asarray(data[1]).reshape(-1), dtype=torch.long, device=self.device)
         te_y = torch.as_tensor(np.asarray(data[3]).reshape(-1), dtype=torch.long, device=self.device)
         n_train = tr_x.shape[0]
+        shards = self._shards
         seed = cfg.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed)  # init and batch order, on the CPU
         dropout_gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -305,7 +407,8 @@ class Trainer:
                 group["lr"] = phase.lr
             if phase.freeze and self._frozen_cache_ok():
                 mode = "head"
-                px, pe = self.extract_features(tr_x), self.extract_features(te_x)
+                px, pe = (shards.gather(lambda part: self._batched_apply(part, None, "features"), x)
+                          for x in (tr_x, te_x))
             else:
                 mode, px, pe = "full", tr_x, te_x
             for epoch in range(phase.epochs):
@@ -319,16 +422,21 @@ class Trainer:
                 losses, correct = [], []
                 for i in range(0, n_train, bs):  # last batch at its true size
                     idx = perm[i : i + bs]
-                    loss, corr = self.train_step(opt, px[idx], tr_y[idx], mode)
+                    lo, hi = shards.rows(len(idx))  # this rank's share
+                    if shards.group is not None:
+                        set_rows(self.model, (lo, hi, len(idx)))
+                    loss, corr = self.train_step(opt, px[idx[lo:hi]], tr_y[idx[lo:hi]], mode,
+                                                 batch_rows=len(idx))
                     losses.append(loss)
                     correct.append(corr)
-                te_logits = self._batched_apply(pe, None, mode)
-                hist["loss"].append(torch.stack(losses).mean())
-                hist["train_acc"].append(self._train_acc(torch.stack(correct), n_train, bs))
+                te_logits = shards.gather(lambda part: self._batched_apply(part, None, mode), pe)
+                hist["loss"].append(shards.sum_(torch.stack(losses)).mean())
+                correct = shards.sum_(torch.stack(correct))
+                hist["train_acc"].append(self._train_acc(correct, n_train, bs))
                 hist["test_acc"].append(self._test_acc(te_logits, te_y))
                 if cfg.keep_epoch_logits:
                     epoch_logits.append(te_logits)
-            if checkpoint_dir is not None:
+            if checkpoint_dir is not None and writes_files():
                 from eav_tpu_torch.core.checkpoint import save_pytree
 
                 save_pytree(os.path.join(checkpoint_dir, f"phase{phase_idx}"),

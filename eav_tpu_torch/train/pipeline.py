@@ -47,7 +47,7 @@ from eav_tpu_torch.core.device import resolve_device
 from eav_tpu_torch.core.optim import HEAD_REGEX
 from eav_tpu_torch.core.sweep import TaskResult
 from eav_tpu_torch.ingest.split import eav_split
-from eav_tpu_torch.train.loop import Trainer, TrainResult
+from eav_tpu_torch.train.loop import Trainer, TrainResult, writes_files
 
 
 def default_presets() -> Dict[str, PresetConfig]:
@@ -178,7 +178,13 @@ def build_model(preset: PresetConfig, **overrides):
 class ModalityPipelines:
     """Task functions bound to a data root, cache and logit directories, and
     a device (``"cuda"`` unless the caller passes another); ``deterministic``
-    runs every fit under torch's deterministic mode."""
+    runs every fit under torch's deterministic mode.
+
+    ``mesh`` (``parallel/mesh.py``, a ``data`` axis): the vision fine-tunes
+    run data-parallel over it (``Trainer.fit(mesh=)``), as the JAX
+    package's do; every other task runs whole on each rank. In a process
+    group only rank 0 writes archives (the train split's logits are
+    predicted there alone)."""
 
     def __init__(
         self,
@@ -189,8 +195,10 @@ class ModalityPipelines:
         seed: int = 0,
         device="cuda",
         deterministic: bool = False,
+        mesh=None,
     ):
         self.data_root = data_root
+        self.mesh = mesh
         self.cache_dir = cache_dir
         self.logits_dir = logits_dir
         self.seed = seed
@@ -260,8 +268,12 @@ class ModalityPipelines:
 
         return _cached(self.cache_dir, f"s{subject:02d}_vis_{_cfg_hash(cfg)}", compute)
 
+    def _archives(self) -> bool:
+        """Whether this process writes logit archives."""
+        return self.logits_dir is not None and writes_files()
+
     def _save_logits(self, subject: int, modality: str, split: str, logits: np.ndarray):
-        if self.logits_dir is None:
+        if not self._archives():
             return
         os.makedirs(self.logits_dir, exist_ok=True)
         path = os.path.join(self.logits_dir, f"s{subject:02d}_{modality}_{split}.npy")
@@ -332,7 +344,7 @@ class ModalityPipelines:
         result = trainer.fit(data, seed=self.seed + subject, init_params=init_params)
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if self.logits_dir is not None:
+        if self._archives():
             self._save_logits(subject, key, "train", trainer.predict(data[0]))
         archive_s = time.perf_counter() - t0
         return result, fit_s, archive_s
@@ -398,7 +410,8 @@ class ModalityPipelines:
     def run_vision(self, subject: int, preset_key: str = "vision") -> TaskResult:
         """The vision fine-tune of one subject, scored by the per-trial vote
         over its frames: ViT (the ``vision`` preset, the default) or
-        ResNetAttn (``vision_resnet``)."""
+        ResNetAttn (``vision_resnet``); data-parallel over the pipelines'
+        ``mesh`` when they have one."""
         key = preset_key
         t0 = time.perf_counter()
         tr_f, tr_fy, te_f, te_fy, fps = self._take_or_load(
@@ -408,10 +421,10 @@ class ModalityPipelines:
         trainer = self._trainer(key, self.presets[key])
         t0 = time.perf_counter()
         result = trainer.fit((tr_f, tr_fy, te_f, te_fy), seed=self.seed + subject,
-                             init_params=init)
+                             init_params=init, mesh=self.mesh)
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if self.logits_dir is not None:
+        if self._archives():
             tr_logits = trainer.predict(tr_f)
             self._save_logits(subject, key, "train", M.trial_vote(tr_logits, fps)[0].numpy())
         archive_s = time.perf_counter() - t0
@@ -533,7 +546,7 @@ class ModalityPipelines:
                                       init_params=init)
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        tr_logits = trainer.predict(stack[0], stacked.params) if self.logits_dir else None
+        tr_logits = trainer.predict(stack[0], stacked.params) if self._archives() else None
         predict_s = time.perf_counter() - t0
         epochs = int(stacked.history["test_acc"].shape[1])
         n_train = int(stack[0].shape[1])

@@ -217,7 +217,8 @@ def test_cli_run_cpu_matches_jax(tmp_path, monkeypatch):
 
 def test_run_refusals(tmp_path, monkeypatch):
     """``run`` takes the card unless told otherwise; ``--data-parallel``
-    above 1, more ``--chip-parallel`` workers than cards and an unknown
+    beside ``--chip-parallel`` (JAX's message), more ``--data-parallel``
+    ranks or ``--chip-parallel`` workers than cards, and an unknown
     override field all stop it before any fit."""
     root = _eeg_tree(tmp_path / "EAV")
     base = ["run", "--data-root", str(root), "--subjects", "1", "--modalities", "eeg",
@@ -225,14 +226,18 @@ def test_run_refusals(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         cli.main(base)
-    with pytest.raises(SystemExit, match="parallel/mesh.py"):
-        cli.main([*base, "--device", "cpu", "--data-parallel", "2"])
+    with pytest.raises(SystemExit, match="--chip-parallel and --data-parallel are mutually"):
+        cli.main([*base, "--device", "cpu", "--data-parallel", "2", "--chip-parallel", "1"])
     with pytest.raises(KeyError, match="has no field"):
         cli.main([*base, "--device", "cpu", "--set", "eeg.split.no_such_field=1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match="only 1 CUDA devices"):
         cli.main([*base, "--chip-parallel", "2"])
+    with pytest.raises(SystemExit, match="--data-parallel 2 requested but only 1 devices"):
+        cli.main([*base, "--data-parallel", "2"])
+    with pytest.raises(SystemExit, match="rank r the card cuda:r"):
+        cli.main([*base, "--data-parallel", "2", "--device", "cuda:0"])
     assert not (tmp_path / "out" / "journal.jsonl").exists()
 
 

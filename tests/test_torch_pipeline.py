@@ -214,7 +214,10 @@ def test_port_and_chip_smoke_import_without_jax():
             "eav_tpu_torch.models.hf_import", "eav_tpu_torch.models.mtcnn",
             "eav_tpu_torch.core.sweep", "eav_tpu_torch.core.checkpoint",
             "eav_tpu_torch.cli", "eav_tpu_torch.parallel.farm", "eav_tpu_torch.ingest.verify",
-            "eav_tpu_torch.utils.profiling"} <= set(names)
+            "eav_tpu_torch.utils.profiling", "eav_tpu_torch.parallel.mesh",
+            "eav_tpu_torch.parallel.tp", "eav_tpu_torch.parallel.distributed",
+            "eav_tpu_torch.parallel.dryrun", "eav_tpu_torch.ingest.native",
+            "eav_tpu_torch.models.norm"} <= set(names)
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):
