@@ -76,9 +76,17 @@ Phases, each of which fails the run on error:
    subject-step beside the serial step of phase 11, and peak memory;
 15. stacked AST-base: ``run_stacked([1, 2], "audio")`` (subject 2 a link to
    subject 1's wavs) with the full-width ``ast_finetune`` preset, one frozen
-   and one unfrozen epoch: ``vmap`` with math attention and remat 'attn';
-   the flash kernels are not launched; the stacked unfrozen step timed at
-   S 2 with its peak memory;
+   and one unfrozen epoch: ``vmap`` with the preset's 'auto' attention
+   resolved to math and remat 'attn'; the flash kernels are not launched;
+   then one unfrozen stacked step at S 2 through the flash kernels' vmap
+   rule (the stack folded into B·H 192) against the same step with math
+   attention on the same weights: each subject's loss within
+   ``STACKED_FLASH_TOL``'s relative bound and every gradient within its
+   bound of the leaf's largest entry; K1 launched 24 times (12 forward, 12
+   remat recompute) and K2, K3 12 times each, once a layer for the stack;
+   a planted fold that interleaves the subjects must fail the check; the
+   stacked step timed at S 2 with math and with flash attention, and K1-K3
+   timed at the stacks' shapes (B·H 192 and 384) beside their bounds;
 16. fusion: ``run_fusion(s, mods=("eeg", "eeg_conformer"))`` over the
    archives of phase 13 for each of the conformer group's 4 subjects at the
    preset's 100 epochs: the row keys and finite fused logits;
@@ -148,7 +156,19 @@ Phases, each of which fails the run on error:
    ``TP_GRAD_TOL`` of the largest gradient entry), and the contiguous-qkv
    fault beyond them; the TP step's time over gloo on one card;
 26. ``parallel/dryrun.dryrun_multichip(2, "cuda")``: its legs on two gloo
-   ranks on ``cuda:0`` and the farm's two workers on ``cuda:0``.
+   ranks on ``cuda:0`` and the farm's two workers on ``cuda:0``;
+27. the measurement entry points: ``entry()`` (AST-base at batch 8, bf16,
+   one forward launching K1 12 times; on a seeded normal input of its
+   shape, its logits against the same module with math attention within
+   ``ENTRY_TOL``, and two planted K1 faults beyond it); ``scripts/bench.py``'s three
+   modes at cut sizes: the flagship (20 steps: K1, K2, K3 12 launches a
+   step, MFU and roofline from the card's peaks), ``--eegnet`` (S 42, 2
+   epochs, the torch EEGNet on the host's CPU live) and ``--stacked`` (S 2:
+   K1 24, K2 and K3 12 a step); ``scripts/sweep_sim.py`` at 2 subjects in a
+   group of 2 (200 epochs); ``scripts/run_production_sweep.py --subjects
+   1-2`` in a subprocess (caches at the real shapes, ``cli run`` over eeg,
+   audio, vision and fusion: every task done, the summary's modalities,
+   the mean of nvidia-smi's utilization.gpu); each prints its JSON line.
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
 float32 means float32 throughout the run. ``CUBLAS_WORKSPACE_CONFIG`` is set
@@ -189,6 +209,19 @@ TOLERANCE = {
 }
 B, H, D = 8, 12, 64
 T_AST = 1214
+# The stacked AST-base step at S 2 through the flash kernels against math
+# attention, same weights, bf16 (phase 15): (loss, relative; each gradient,
+# of the leaf's largest entry). bf16 rounds at other points in the two paths
+# (the kernels round P to V's type before P V, math keeps the softmax in
+# bf16). Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 3.5e-4
+# and 0.0154 (the first layer's qkv bias), the interleaving fold 0.354 and
+# 20.3; the bounds sit between.
+STACKED_FLASH_TOL = (1e-2, 5e-2)
+# entry()'s bf16 logits through the kernels against math attention (phase
+# 27): 0.0044 on its zero input and 0.0217 on the seeded normal input on
+# the same card, where the planted faults read 3.32 (no 1/sqrt(D) scale)
+# and 1.06 (the next sample's keys)
+ENTRY_TOL = 5e-2
 
 
 T_START = time.perf_counter()
@@ -1242,19 +1275,21 @@ def run_stacked_eeg(card: str, root: str):
 # -----------------------------------------------------------------------------
 
 
-def stacked_trainer(preset):
+def stacked_trainer(preset, attn_impl: str = "math"):
     """A ``SubjectParallelTrainer`` of the preset's model as ``run_stacked``
-    builds it (math attention and remat 'attn' for a transformer)."""
+    builds it (remat 'attn' for a transformer, with ``attn_impl``: math, as
+    the presets' 'auto' resolves in a stack, or flash)."""
     from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
     from eav_tpu_torch.train.pipeline import build_model
 
     overrides = {}
     if preset.finetune.model in ("ast", "vit"):
-        overrides = {"attn_impl": "math", "remat": "attn"}
+        overrides = {"attn_impl": attn_impl, "remat": "attn"}
     return SubjectParallelTrainer(build_model(preset, **overrides), preset.finetune, device="cuda")
 
 
-def time_stacked_step(card: str, preset_name: str, subjects: int, what: str):
+def time_stacked_step(card: str, preset_name: str, subjects: int, what: str,
+                      attn_impl: str = "math"):
     """Median ms of 5 stacked train steps of ``subjects`` subjects on random
     inputs of the real shape (after 2 warm-up steps), its dropout masks
     drawn as in a fit -> (ms, peak GiB)."""
@@ -1265,7 +1300,7 @@ def time_stacked_step(card: str, preset_name: str, subjects: int, what: str):
     preset = get_preset(preset_name)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sp = stacked_trainer(preset)
+    sp = stacked_trainer(preset, attn_impl)
     stack = sp.init_stack(range(subjects))
     sp.model.train()
     x, y = step_inputs(preset, (subjects,))
@@ -1337,6 +1372,80 @@ def run_stacked_audio(card: str) -> None:
         raise AssertionError(f"stacked AST archives {[a.shape for a in arch]}")
     if any(launches.values()):
         raise AssertionError(f"a stacked fit launched a flash kernel: {launches}")
+
+
+def interleaved_fold(x, dim, size: int):
+    """A planted fault for ``ops/attention._fold``: the stack folded B·H-major
+    ((BH, S) order), while the outputs are read back subject-major."""
+    x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.transpose(0, 1).reshape(size * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def stacked_ast_step(attn_impl: str, x, y):
+    """One unfrozen stacked ``ast_finetune`` step of S subjects (seeds 0..S-1)
+    -> (loss (S,), gradients by leaf, launches of K1-K3 in the step). The
+    trainer's first step at a shape finds the model's dropouts by one
+    unbatched forward (``_masks``); it runs before the count."""
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.ops import attention as A
+
+    sp = stacked_trainer(get_preset("ast_finetune"), attn_impl)
+    stack = sp.init_stack(range(x.shape[0]))
+    sp.model.train()
+    sp._masks(stack, x, "full")
+    before = {fn.__name__: fn.launches for fn in A.KERNELS[:3]}
+    loss, _ = sp.train_step(stack, x, y)
+    torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches - before[fn.__name__] for fn in A.KERNELS[:3]}
+    return loss.float(), {k: p.grad.float() for k, p in stack.params.items()}, launched
+
+
+def stacked_flash_error(flash, math) -> tuple:
+    """(largest relative loss difference, largest gradient difference in
+    units of its leaf's largest entry, the leaf) of two stacked steps."""
+    (loss_f, grads_f, _), (loss_m, grads_m, _) = flash, math
+    loss_err = float(((loss_f - loss_m).abs() / loss_m.abs()).max())
+    name, grad_err = max(((k, float((grads_f[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)))
+                          for k, g in grads_m.items()), key=lambda kv: kv[1])
+    return loss_err, grad_err, name
+
+
+def check_stacked_flash(card: str) -> None:
+    """The stacked AST-base step at S 2 through the flash kernels' vmap rule
+    against math attention on the same weights and batch, its launches, and
+    the interleaving fold that must fail."""
+    import torch
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.ops import attention as A
+
+    x, y = step_inputs(get_preset("ast_finetune"), (2,))
+    math = stacked_ast_step("math", x, y)
+    flash = stacked_ast_step("flash", x, y)
+    loss_err, grad_err, leaf = stacked_flash_error(flash, math)
+    log(f"stacked AST-base step, S 2, bf16, remat 'attn': flash (B·H {2 * B * H} a launch) vs "
+        f"math attention, losses {flash[0].tolist()} vs {math[0].tolist()}: relative loss diff "
+        f"{loss_err:.3g}, gradients {grad_err:.3g} of the leaf's largest entry (worst: {leaf}); "
+        f"tolerance {STACKED_FLASH_TOL}; launches in the step {flash[2]} on {card}")
+    if flash[2] != {"flash_fwd": 24, "flash_dkv": 12, "flash_dq": 12}:
+        raise AssertionError(f"the stacked step launched {flash[2]}, not K1 24, K2 12, K3 12")
+    if not (loss_err <= STACKED_FLASH_TOL[0] and grad_err <= STACKED_FLASH_TOL[1]):
+        raise AssertionError(f"stacked flash step off math: loss {loss_err}, gradients {grad_err}")
+    fold = A._fold
+    A._fold = interleaved_fold
+    try:
+        bad = stacked_ast_step("flash", x, y)
+    finally:
+        A._fold = fold
+    bad_loss, bad_grad, bad_leaf = stacked_flash_error(bad, math)
+    log(f"planted interleaving fold: relative loss diff {bad_loss:.3g}, gradients {bad_grad:.3g} "
+        f"(worst: {bad_leaf})")
+    if bad_loss <= STACKED_FLASH_TOL[0] and bad_grad <= STACKED_FLASH_TOL[1]:
+        raise AssertionError("the stacked flash check passed a fold that interleaves subjects")
+    del math, flash, bad
+    torch.cuda.empty_cache()
 
 
 # -----------------------------------------------------------------------------
@@ -2730,13 +2839,134 @@ def run_multi_card_phases(card: str, eeg_root: str) -> None:
             raise AssertionError(f"rank {rank}: the check passed the contiguous-qkv fault")
     log(f"the two gloo ranks on cuda:0 (DP vision twice, TP step): {spawn_s:.1f} s from the "
         f"spawn on {card}")
-    time_tp_shard_kernels(card, 8 * ranks[0]["tp"]["heads"])
+    time_kernels_at(card, 8 * ranks[0]["tp"]["heads"], "a TP rank's shape")
     mark("25. tensor parallelism")
 
 
-def time_tp_shard_kernels(card: str, bh: int) -> None:
-    """K1-K3 at a TP rank's shape (B·H/2, T 1214, D 64, bf16), a call in a
-    run of 20 on the free card, beside their bound at that shape."""
+# -----------------------------------------------------------------------------
+# 27. the measurement entry points
+# -----------------------------------------------------------------------------
+
+
+def check_entry(card: str) -> None:
+    """``entry()``: one forward of AST-base at batch 8 on its zero input
+    through K1 (finite logits, 12 launches); then the same module through K1
+    and through math attention on a seeded normal input of that shape,
+    whose rows and tokens differ, within ``ENTRY_TOL``, and two planted K1
+    faults (the 1/sqrt(D) scale dropped; each sample's queries against the
+    next sample's keys and values) beyond it."""
+    import torch
+
+    from eav_tpu_torch.entry import entry
+    from eav_tpu_torch.models.transformer import MultiHeadSelfAttention
+    from eav_tpu_torch.ops import attention as A
+
+    forward, (model, x) = entry()
+    forward(model, x)  # warm
+    torch.cuda.synchronize()
+    before = A.flash_fwd.launches
+    t0 = time.perf_counter()
+    out = forward(model, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = A.flash_fwd.launches - before
+    if out.shape != (8, 5) or not bool(torch.isfinite(out).all()) or launched != 12:
+        raise AssertionError(f"entry(): logits {tuple(out.shape)}, K1 launched {launched}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    xr = torch.randn(x.shape, generator=gen, device="cuda")
+    got = forward(model, xr)
+    fwd = A.FlashAttention.forward  # K1 through its counted wrapper, as the faults call it
+    faults = {"no 1/sqrt(D) scale": lambda q, k, v, t: fwd(q * q.shape[-1] ** 0.5, k, v, t),
+              "keys of the next sample": lambda q, k, v, t: fwd(q, k.roll(H, 0), v.roll(H, 0), t)}
+    bad = {}
+    for what, fault in faults.items():
+        A.FlashAttention.forward = staticmethod(fault)
+        try:
+            bad[what] = forward(model, xr)
+        finally:
+            A.FlashAttention.forward = staticmethod(fwd)
+    for m in model.modules():
+        if isinstance(m, MultiHeadSelfAttention):
+            m.attn_impl = "math"
+    want = forward(model, xr)
+    err = max_err(got, want, ENTRY_TOL, ENTRY_TOL)
+    log(f"entry(): AST-base bf16 forward at batch 8, logits {tuple(out.shape)}, {ms:.2f} ms, K1 "
+        f"launched {launched} times; on a seeded normal input, max abs err against math "
+        f"attention {err:.3g} (atol = rtol = {ENTRY_TOL}), planted faults " + ", ".join(
+            f"{what} {float((b.float() - want.float()).abs().max()):.3g}"
+            for what, b in bad.items()) + f" on {card}")
+    for what, b in bad.items():
+        must_reject(b, want, ENTRY_TOL, ENTRY_TOL, f"entry(): {what}")
+
+
+def check_bench_line(line: dict, launches: dict, name: str) -> None:
+    if not (line["value"] > 0 and name in line["device"]):
+        raise AssertionError(f"bench line: {line}")
+    if launches and line["launches_per_step"] != launches:
+        raise AssertionError(f"bench launches a step {line['launches_per_step']}, not {launches}")
+
+
+def run_measurement_phase(card: str) -> None:
+    """Phase 27: ``entry()``, the bench's three modes, ``sweep_sim`` and the
+    production sweep at cut sizes, each printing its JSON line."""
+    import tempfile
+
+    import torch
+
+    from eav_tpu_torch.scripts import bench, sweep_sim
+
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    check_entry(card)
+    line = bench.main(["--steps", "20"])
+    check_bench_line(line, {"flash_fwd": 12, "flash_dkv": 12, "flash_dq": 12}, name)
+    if line["mfu_pct"] is None or line["roofline_pct"] is None:
+        raise AssertionError("the flagship line has no MFU or roofline on the card")
+    check_bench_line(bench.main(["--eegnet", "--epochs", "2"]), {}, name)
+    stack = os.environ.get("EAV_BENCH_STACK")
+    os.environ["EAV_BENCH_STACK"] = "2"
+    try:
+        line = bench.main(["--stacked"])
+    finally:
+        if stack is None:
+            del os.environ["EAV_BENCH_STACK"]
+        else:
+            os.environ["EAV_BENCH_STACK"] = stack
+    check_bench_line(line, {"flash_fwd": 24, "flash_dkv": 12, "flash_dq": 12}, name)
+    log(f"entry() and the bench's three modes: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line = sweep_sim.main(["2", "2"])
+    if not (line["epochs"] == 200 and line["value"] > 0 and name in line["device"]):
+        raise AssertionError(f"sweep_sim: {line}")
+    log(f"sweep_sim at 2 subjects: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "eav_tpu_torch.scripts.run_production_sweep", "--subjects",
+             "1-2", "--out", out], cwd=HERE, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        log(run.stdout.strip())
+        if run.returncode != 0:
+            raise AssertionError(f"run_production_sweep exited {run.returncode}: "
+                                 f"{run.stderr[-3000:]}")
+        with open(os.path.join(out, "journal.jsonl")) as f:
+            done = {r["task"] for r in map(json.loads, f) if r.get("status") == "done"}
+        summary = json.loads(run.stdout[run.stdout.index('{\n  "sweep_journal_summary"'):])
+    want = {f"subject0{s}_{m}" for s in (1, 2) for m in ("eeg", "audio", "vision", "fusion")}
+    report = summary["sweep_journal_summary"]
+    log(f"run_production_sweep --subjects 1-2: {wall:.1f} s, {len(done)} tasks done on {card}")
+    if done != want or set(report) != {"eeg", "audio", "vision", "fusion", "total"}:
+        raise AssertionError(f"production sweep: done {sorted(done)}, summary {sorted(report)}")
+    if report["total"].get("gpu_util_pct") is None or name not in summary["device"]:
+        raise AssertionError(f"production sweep summary without the card: {summary}")
+
+
+def time_kernels_at(card: str, bh: int, what: str) -> None:
+    """K1-K3 at (``bh``, T 1214, D 64, bf16), a call in a run of 20 on the
+    free card, beside their bound at that shape: a TP rank's B·H/2, a
+    stack's S·B·H."""
     import torch
 
     from eav_tpu_torch.ops import attention as A
@@ -2750,7 +2980,7 @@ def time_tp_shard_kernels(card: str, bh: int) -> None:
              "flash_dkv": lambda: A.flash_dkv(q, k, v, do, lse, di, T_AST),
              "flash_dq": lambda: A.flash_dq(q, k, v, do, lse, di, T_AST)}
     bounds = kernel_bounds(T_AST)
-    log("K1-K3 at a TP rank's shape (BH " + str(bh) + f", T {T_AST}, D {D}, bf16), a call in a "
+    log(f"K1-K3 at {what} (BH {bh}, T {T_AST}, D {D}, bf16), a call in a "
         "run of 20: " + ", ".join(
             f"{n} {cuda_ms_run(fn):.4f} ms (bound {bounds[n][0] * bh / (B * H):.4f} ms)"
             for n, fn in calls.items()) + f" on {card}")
@@ -2848,8 +3078,12 @@ def main() -> int:
                 f"step's {serial_ms[preset_name]:.3f} ms ({serial_ms[preset_name] * size / ms:.2f}x)")
     mark("14. stacked steps")
     run_stacked_audio(card)
-    time_stacked_step(card, "ast_finetune", 2,
-                      "AST-base, unfrozen, bs 8 a subject, bf16, math attention, remat 'attn'")
+    check_stacked_flash(card)
+    for impl in ("math", "flash"):
+        time_stacked_step(card, "ast_finetune", 2, "AST-base, unfrozen, bs 8 a subject, bf16, "
+                          f"{impl} attention, remat 'attn'", impl)
+    for subjects in (2, 4):
+        time_kernels_at(card, subjects * B * H, f"a stack of {subjects}'s shape")
     mark("15. stacked AST")
     # fusion's host-bound head fits outside the deterministic mode
     run_fusion_phase(card, eeg_pipelines(eeg_root.name, "stacked"))
@@ -2889,6 +3123,8 @@ def main() -> int:
         f"cuda:0, the farm's 2 workers on cuda:0) on {card}")
     mark("26. dry run")
     eeg_root.cleanup()
+    run_measurement_phase(card)
+    mark("27. measurement entry points")
 
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():

@@ -77,8 +77,8 @@ def cmd_presets(_args) -> int:
 # - EEGNet and the conformer stack all 42 subjects (3.9 and 42.9 GiB; 1.9x
 #   and 6.8x a subject over serial);
 # - AST-base fits at S 2 but runs a subject 2x slower than serial flash
-#   attention, and a stacked transformer leaves the flash kernels for math
-#   attention; ViT-base is not measured stacked: 1, serial per card;
+#   attention, and a stacked transformer resolves the presets' 'auto'
+#   attention to math; ViT-base is not measured stacked: 1, serial per card;
 # - the SCNN: 16 (1.22-1.24 ms a subject-step against 1.32 at S 8 and
 #   1.49 at S 42; its serial step 2.5-4.2 ms, host-bound);
 # - ResNet50 + attention: 1 (a float32 step is device-bound serially).

@@ -66,6 +66,7 @@ class AST(nn.Module):
         self.hidden = hidden
         self.dropout = dropout
         self.stream_dtype = stream_dtype
+        self.input_shape = (max_frames, num_mel_bins)  # one example: (frames, mels)
         rows = (num_mel_bins - patch_size) // frequency_stride + 1
         cols = (max_frames - patch_size) // time_stride + 1
         self.num_patches = rows * cols

@@ -28,6 +28,13 @@ the CPU and the CUDA kernel for tensors on a GPU; it never falls back from
 one to the other. Each wrapper counts its kernel launches in ``.launches``,
 under ``ops/build.LOCK`` (farm workers launch from several threads).
 ``Di = rowsum(dO * O)`` stays plain PyTorch in float32, as it stayed XLA.
+
+Under ``torch.func.vmap`` (a stacked fit, ``parallel/subject.py``) the
+autograd functions fold the stack axis into the head-major one: S stacked
+(BH, T, D) operands become one (S·BH, T, D) call, so one launch serves the
+whole stack, as Pallas lifts a vmapped kernel's stack axis into its grid.
+The kernels put B·H on ``blockIdx.y``, which CUDA caps at 65,535: the
+wrappers refuse a larger B·H, folded or not.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from eav_tpu_torch.ops import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
+MAX_BH = 65535  # B·H lies on blockIdx.y, whose extent CUDA caps here
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,6 +118,10 @@ def _check_operands(q: torch.Tensor, *same: torch.Tensor) -> Tuple[int, int, int
     bh, t_pad, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not among the built kernels {HEAD_DIMS}")
+    if bh > MAX_BH:
+        raise ValueError(
+            f"B·H = {bh} (a vmapped stack folds its subjects into it) is past the kernels' "
+            f"grid limit of {MAX_BH} blocks on blockIdx.y: split the stack or the batch")
     return bh, t_pad, d
 
 
@@ -295,12 +307,26 @@ def reset_launches() -> None:
 # -----------------------------------------------------------------------------
 
 
+def _fold(x: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """One operand of a vmapped call, (S, BH, ...) with its stack axis ``dim``
+    (None: unbatched, expanded to the stack), as one contiguous (S·BH, ...)
+    operand, subject by subject."""
+    x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(size * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def _unfold(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(S·BH, ...) -> (S, BH, ...): ``_fold``'s inverse."""
+    return x.view(size, x.shape[0] // size, *x.shape[1:])
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention on head-major (BH, T, D) operands -> (O, LSE): K1 forward,
     K2 and K3 backward (the JAX package's ``custom_vjp`` pair). LSE is
     returned (not differentiable) so that the backward can keep it: with a
     separate ``setup_context`` the function also runs under ``torch.func``'s
-    ``vjp``, as a remat recompute (``models/transformer.Remat``) calls it."""
+    ``vjp``, as a remat recompute (``models/transformer.Remat``) calls it.
+    Its ``vmap`` rule folds the stack into B·H (the module docstring)."""
 
     @staticmethod
     def forward(q, k, v, t_real: int):
@@ -319,12 +345,22 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         return (*FlashAttentionBackward.apply(q, k, v, o, lse, do, ctx.t_real), None)
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, t_real: int):
+        s = info.batch_size
+        o, lse = FlashAttention.apply(*(_fold(x, d, s) for x, d in zip((q, k, v), in_dims)),
+                                      t_real)
+        return (_unfold(o, s), _unfold(lse, s)), (0, 0)
+
 
 class FlashAttentionBackward(torch.autograd.Function):
     """(q, k, v, O, LSE, dO) -> (dQ, dK, dV): rowsum(dO * O), then K2 and K3.
     A function of its own because under ``torch.func`` a backward sees the
     transform's wrapped tensors, which have no data pointer for a kernel;
-    only a function's forward gets plain ones. Not differentiable again."""
+    only a function's forward gets plain ones. Under vmap (a remat
+    recompute's backward inside a stacked fit) it folds the stack as
+    ``FlashAttention`` does, and Di is computed on the folded operands. Not
+    differentiable again."""
 
     @staticmethod
     def forward(q, k, v, o, lse, do, t_real: int):
@@ -340,6 +376,13 @@ class FlashAttentionBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise RuntimeError("the flash attention backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, t_real: int):
+        s = info.batch_size
+        folded = (_fold(x, d, s) for x, d in zip((q, k, v, o, lse, do), in_dims))
+        grads = FlashAttentionBackward.apply(*folded, t_real)
+        return tuple(_unfold(g, s) for g in grads), (0, 0, 0)
 
 
 def flash_attention_bh(q, k, v, t_real: int):

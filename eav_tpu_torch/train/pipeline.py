@@ -512,12 +512,14 @@ class ModalityPipelines:
         aggregate. Both splits' logits are archived for every subject (the
         vision ones trial-voted), so fusion can follow.
 
-        A stacked transformer runs math attention (``'auto'`` or
-        ``'flash'`` resolve to ``'math'``: the flash kernels have no vmap
-        rule) and recomputes its attention sublayer in the backward (remat
+        A stacked transformer resolves ``'auto'`` attention to ``'math'``
+        and recomputes its attention sublayer in the backward (remat
         ``'none'`` becomes ``'attn'``), as the JAX package's stacked
-        programs do. A pretrained checkpoint (``_pretrained_params``) is the
-        init of every subject, as in the serial fits."""
+        programs do; an explicit ``'flash'`` stays, and K1-K3 serve the
+        whole stack in one launch a layer (their vmap rule,
+        ``ops/attention.py``). A pretrained checkpoint
+        (``_pretrained_params``) is the init of every subject, as in the
+        serial fits."""
         from eav_tpu_torch.parallel.subject import SubjectParallelTrainer
 
         if modality not in ("eeg", "eeg_conformer", "audio", "audio_scnn", "vision",
@@ -530,7 +532,7 @@ class ModalityPipelines:
         overrides = {}
         if preset.finetune.model in ("ast", "vit"):
             kw = preset.finetune.model_kwargs or {}
-            if kw.get("attn_impl", "math") in ("auto", "flash"):
+            if kw.get("attn_impl", "math") == "auto":
                 overrides["attn_impl"] = "math"
             if kw.get("remat", "none") == "none":
                 overrides["remat"] = "attn"

@@ -144,3 +144,110 @@ def test_flash_variants_patch_the_committed_source():
     src = (build.CSRC_DIR / "flash_attention.cu").read_text()
     for name in V.VARIANTS:
         assert (V.patched(name) == src) == (name == "committed"), name
+
+
+# -----------------------------------------------------------------------------
+# Under torch.func.vmap: the stack folded into B·H (a stacked fit's path)
+# -----------------------------------------------------------------------------
+
+
+class _Attention(torch.nn.Module):
+    """Attention of a (B, T, 3, H, D) q/k/v stack, as ``transformer.Remat``
+    recomputes a sublayer (``block`` names it)."""
+
+    def forward(self, x, block=None):
+        return A.flash_attention(*x.unbind(2))
+
+
+def _vmapped_loss_and_grads(q, k, v, remat: str):
+    """The port: vmap over the stack of grad_and_value of sum(attention²),
+    the attention rematted through ``transformer.Remat`` with 'attn'."""
+    from torch.func import grad_and_value, vmap
+
+    from eav_tpu_torch.models.transformer import Remat
+
+    module = _Attention()
+
+    def loss(q, k, v):
+        if remat == "attn":
+            o = Remat.apply(module, "attn", (), torch.stack((q, k, v), 2))
+        else:
+            o = A.flash_attention(q, k, v)
+        return (o ** 2).sum()
+
+    grads, value = vmap(grad_and_value(loss, argnums=(0, 1, 2)))(
+        *(torch.from_numpy(x) for x in (q, k, v)))
+    return value.numpy(), [g.numpy() for g in grads]
+
+
+def _jax_vmapped(q, k, v, remat: str):
+    def loss(q, k, v):
+        attn = lambda q, k, v: J.flash_attention(q, k, v, True)  # noqa: E731
+        if remat == "attn":
+            attn = jax.checkpoint(attn)
+        return (attn(q, k, v) ** 2).sum()
+
+    value, grads = jax.vmap(jax.value_and_grad(loss, argnums=(0, 1, 2)))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    return np.asarray(value), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("remat", ["none", "attn"])
+def test_vmapped_flash_matches_jax_vmapped_pallas(rng, remat):
+    """The stack axis folded into B·H (one call for the stack) against the
+    Pallas kernels under ``jax.vmap`` (the stack lifted into the grid), at
+    tests/test_pallas_attention.py's vmap shape and tolerances; with remat,
+    the backward runs the recompute under vmap too."""
+    s, b, t, h, d = 3, 2, 96, 2, 32
+    q, k, v = _qkv(rng, (s, b, t, h, d))
+    value, grads = _vmapped_loss_and_grads(q, k, v, remat)
+    want_value, want_grads = _jax_vmapped(q, k, v, remat)
+    np.testing.assert_allclose(value, want_value, rtol=2e-5)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g, w, rtol=5e-4, atol=5e-5)
+
+
+def test_one_plain_call_serves_the_stack(rng, monkeypatch):
+    """Each of K1-K3's plain versions runs once for the whole stack, on
+    (S·B·H, T, D) operands, with remat's recompute once more for K1."""
+    s, b, t, h, d = 3, 2, 40, 2, 16
+    shapes = {n: [] for n in ("flash_fwd_plain", "flash_dkv_plain", "flash_dq_plain")}
+    for name in shapes:
+        plain = getattr(A, name)
+        monkeypatch.setattr(A, name, lambda *a, _p=plain, _n=name: (
+            shapes[_n].append(tuple(a[0].shape)), _p(*a))[1])
+    _vmapped_loss_and_grads(*_qkv(rng, (s, b, t, h, d)), "attn")
+    folded = (s * b * h, t, d)
+    assert shapes == {"flash_fwd_plain": [folded, folded], "flash_dkv_plain": [folded],
+                      "flash_dq_plain": [folded]}
+
+
+def test_a_subject_interleaving_fold_fails(rng, monkeypatch):
+    """A planted fault: the stack folded B·H-major ((BH, S) order) while the
+    outputs are read back subject-major hands each subject another's rows;
+    the comparison against JAX must catch it."""
+    s, b, t, h, d = 3, 2, 96, 2, 32
+    q, k, v = _qkv(rng, (s, b, t, h, d))
+
+    def interleaved(x, dim, size):
+        x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+        return x.transpose(0, 1).reshape(size * x.shape[1], *x.shape[2:]).contiguous()
+
+    monkeypatch.setattr(A, "_fold", interleaved)
+    value, grads = _vmapped_loss_and_grads(q, k, v, "none")
+    want_value, want_grads = _jax_vmapped(q, k, v, "none")
+    assert not np.allclose(value, want_value, rtol=2e-5)
+    assert not any(np.allclose(g, w, rtol=5e-4, atol=5e-5) for g, w in zip(grads, want_grads))
+
+
+def test_a_folded_bh_past_the_grid_limit_raises():
+    """B·H lies on blockIdx.y, capped at 65,535 blocks: a stack that folds
+    past it raises in the wrapper, before any kernel or plain version runs;
+    65,535 itself is taken."""
+    from torch.func import vmap
+
+    x = torch.zeros(2, 1, 1, 32768, 16)  # S 2 of (B 1, T 1, H 32768, D 16)
+    with pytest.raises(ValueError, match="grid limit of 65535"):
+        vmap(A.flash_attention)(x, x, x)
+    one = torch.zeros(A.MAX_BH, 1, 16)
+    assert A.flash_fwd(one, one, one, 1)[0].shape == one.shape

@@ -2,7 +2,8 @@
 plain versions on the card, a fit that repeats bit for bit on the card under
 the trainer's deterministic mode, and the fifth slice on the card: the
 scnn180 chain against float64 on the CPU, ResNetAttn's forward against the
-CPU, and an HF checkpoint round trip.
+CPU, an HF checkpoint round trip, and the kernels under ``torch.func.vmap``
+(one launch for a stack).
 
 These need a GPU with the CUDA toolkit (the kernels are built with nvcc at
 first use), so they carry the ``cuda`` marker and skip elsewhere. Run them on
@@ -184,6 +185,40 @@ def test_remat_recomputes_through_the_kernels(cuda, remat):
     assert launches[1][0] > launches[0][0]  # the recompute's forwards
     for n in grads[0]:
         torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("remat", ["none", "attn"])
+def test_vmapped_kernels_match_plain_with_one_launch_a_stack(cuda, remat):
+    """vmap(grad_and_value) of float32 attention over a stack of 3 on the
+    card against the same on the CPU (the plain versions): values and
+    gradients agree, and K1, K2, K3 each launch once for the whole stack
+    (K1 once more for remat's recompute)."""
+    from torch.func import grad_and_value, vmap
+
+    from eav_tpu_torch.models.transformer import Remat
+
+    class Attention(torch.nn.Module):
+        def forward(self, x, block=None):
+            return A.flash_attention(*x.unbind(2))
+
+    module = Attention()
+
+    def loss(q, k, v):
+        if remat == "attn":
+            return (Remat.apply(module, "attn", (), torch.stack((q, k, v), 2)) ** 2).sum()
+        return (A.flash_attention(q, k, v) ** 2).sum()
+
+    gen = torch.Generator().manual_seed(5)
+    qkv = [torch.randn(3, 2, 96, 2, 32, generator=gen) for _ in range(3)]
+    run = vmap(grad_and_value(loss, argnums=(0, 1, 2)))
+    want_grads, want = run(*qkv)
+    A.reset_launches()
+    grads, value = run(*(x.to(cuda) for x in qkv))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in A.KERNELS] == [2 if remat == "attn" else 1, 1, 1, 0]
+    torch.testing.assert_close(value.cpu(), want, rtol=2e-4, atol=2e-4)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-4)
 
 
 @pytest.fixture

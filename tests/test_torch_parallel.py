@@ -471,3 +471,75 @@ def test_deterministic_mode_holds_only_for_the_fit(tmp_path, rng):
     pipes = ModalityPipelines(str(tmp_path), presets={"eeg": _eeg_preset()}, device="cpu",
                               deterministic=True)
     assert pipes._trainer("eeg", pipes.presets["eeg"]).deterministic
+
+
+@pytest.mark.parametrize("remat", ["none", "attn"])
+def test_stacked_ast_flash_step_matches_jax_stacked_step(rng, remat):
+    """One unfrozen stacked step of two ast_tiny subjects with
+    ``attn_impl='flash'`` (the kernels' plain versions, the stack folded
+    into B·H) against JAX's vmapped step with the Pallas kernels in
+    interpret mode, on the same weights through the bridge: each subject's
+    loss and gradients."""
+    from eav_tpu.models.ast import ast_tiny as jax_ast_tiny
+    from eav_tpu.train.loop import cross_entropy as jax_cross_entropy
+    from eav_tpu_torch.models.bridge import ast_params_from_jax
+
+    x = rng.normal(size=(2, 4, 128, 128)).astype(np.float32)
+    y = rng.integers(0, 5, size=(2, 4)).astype(np.int32)
+    mj = jax_ast_tiny(attn_impl="flash", remat=remat)
+    inits = [jax.tree.map(np.asarray, mj.init(jax.random.PRNGKey(s), jnp.asarray(x[0, :1]),
+                                              train=False)["params"]) for s in (0, 1)]
+    stacked = jax.tree.map(lambda *a: jnp.asarray(np.stack(a)), *inits)
+
+    def loss_fn(p, x, y):
+        logits = mj.apply({"params": p}, x, train=False)
+        return jax_cross_entropy(logits, y, jnp.ones_like(y, jnp.float32))
+
+    want_loss, want_grads = jax.vmap(jax.value_and_grad(loss_fn))(
+        stacked, jnp.asarray(x), jnp.asarray(y))
+    cfg = FinetuneConfig(model="ast", batch_size=4, weight_decay=0.01,
+                         phases=(PhaseConfig(1, 5e-6, False),))
+    sp = SubjectParallelTrainer(ast_tiny(attn_impl="flash", remat=remat), cfg, device="cpu")
+    sds = [ast_params_from_jax(p) for p in inits]
+    stack = sp.init_stack([0, 1], {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]})
+    sp.model.eval()
+    loss, _ = sp.train_step(stack, torch.from_numpy(x), torch.from_numpy(y).long())
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss), **TOL)
+    want = [ast_params_from_jax(jax.tree.map(lambda g: np.asarray(g)[s], want_grads))
+            for s in (0, 1)]
+    for name, p in stack.params.items():
+        for s in (0, 1):
+            np.testing.assert_allclose(p.grad[s].numpy(), want[s][name].numpy(), **TOL,
+                                       err_msg=f"{name}, subject {s}")
+
+
+@pytest.mark.parametrize("attn_impl,overrides", [
+    ("flash", {"remat": "attn"}),
+    ("auto", {"attn_impl": "math", "remat": "attn"}),
+    ("math", {"remat": "attn"}),
+])
+def test_run_stacked_keeps_flash_and_rewrites_auto(tmp_path, monkeypatch, attn_impl, overrides):
+    """As the JAX package's ``run_stacked`` (eav_tpu/train/pipeline.py:553-563):
+    only ``'auto'`` attention becomes math in a stacked fit; an explicit
+    ``'flash'`` stays, and remat ``'none'`` becomes ``'attn'``."""
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.train import pipeline
+
+    class Built(Exception):
+        pass
+
+    seen = {}
+
+    def build(preset, **kw):
+        seen.update(kw)
+        raise Built
+
+    base = get_preset("ast_finetune")
+    preset = base.replace(finetune=dataclasses.replace(
+        base.finetune, model_kwargs={**base.finetune.model_kwargs, "attn_impl": attn_impl}))
+    monkeypatch.setattr(pipeline, "build_model", build)
+    monkeypatch.setattr(ModalityPipelines, "_stack_splits", lambda self, subs, mod: (None, None))
+    with pytest.raises(Built):
+        ModalityPipelines(str(tmp_path), presets={"audio": preset},
+                          device="cpu").run_stacked([1, 2], "audio")
+    assert seen == overrides

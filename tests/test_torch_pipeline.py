@@ -217,7 +217,9 @@ def test_port_and_chip_smoke_import_without_jax():
             "eav_tpu_torch.utils.profiling", "eav_tpu_torch.parallel.mesh",
             "eav_tpu_torch.parallel.tp", "eav_tpu_torch.parallel.distributed",
             "eav_tpu_torch.parallel.dryrun", "eav_tpu_torch.ingest.native",
-            "eav_tpu_torch.models.norm"} <= set(names)
+            "eav_tpu_torch.models.norm", "eav_tpu_torch.entry", "eav_tpu_torch.scripts.bench",
+            "eav_tpu_torch.scripts.sweep_sim",
+            "eav_tpu_torch.scripts.run_production_sweep"} <= set(names)
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):
@@ -255,6 +257,20 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatc
         default_face_cropper(VisionPreprocConfig(face_detection=True))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         MTCNNDetector(*(net().state_dict() for net in (PNet, RNet, ONet)))
+    # the measurement entry points
+    from eav_tpu_torch.entry import entry
+    from eav_tpu_torch.scripts import bench, run_production_sweep, sweep_sim
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        entry(**dict(hidden=32, layers=1, heads=2, mlp_dim=64, max_frames=128))
+    for argv in ([], ["--eegnet"], ["--stacked"]):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            bench.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        sweep_sim.main(["2", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        run_production_sweep.main(["--subjects", "1", "--out", str(tmp_path / "sweep")])
+    assert not (tmp_path / "sweep").exists()  # refused before any cache is written
 
 
 def _eeg_preset(model):
