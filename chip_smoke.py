@@ -86,7 +86,8 @@ Phases, each of which fails the run on error:
    remat recompute) and K2, K3 12 times each, once a layer for the stack;
    a planted fold that interleaves the subjects must fail the check; the
    stacked step timed at S 2 with math and with flash attention, and K1-K3
-   timed at the stacks' shapes (B·H 192 and 384) beside their bounds;
+   timed at the stacks' shapes (B·H 192 and 384) beside their bounds, the
+   plain versions and the library's calls;
 16. fusion: ``run_fusion(s, mods=("eeg", "eeg_conformer"))`` over the
    archives of phase 13 for each of the conformer group's 4 subjects at the
    preset's 100 epochs: the row keys and finite fused logits;
@@ -168,7 +169,24 @@ Phases, each of which fails the run on error:
    group of 2 (200 epochs); ``scripts/run_production_sweep.py --subjects
    1-2`` in a subprocess (caches at the real shapes, ``cli run`` over eeg,
    audio, vision and fusion: every task done, the summary's modalities,
-   the mean of nvidia-smi's utilization.gpu); each prints its JSON line.
+   the mean of nvidia-smi's utilization.gpu); each prints its JSON line;
+28. the chip measurement scripts (``eav_tpu_torch/scripts/``): K1-K3 at
+   long T against their plain versions with phase 3's tolerances and
+   planted fault (T 4096 at B·H 16 in bf16 and float32, T 8192 at B·H 8 in
+   bf16), then timed at those shapes and at T 16384 (B·H 8) and 32768
+   (B·H 4) beside their bounds, the plain versions (where they fit) and
+   the library's calls (as phases 15 and 25 time them at their shapes);
+   then every ported script through its functions at full
+   width with its steps cut: the audio and vision flagships and their
+   repeats at 1 frozen + 1 unfrozen epoch (one repeat) on caches of the
+   full protocol's shapes (K1-K3's counts must rise in the audio
+   flagship; the stacked vision pair must finish), the frozen-cache
+   probe at one epoch, the AST ablation and component times, the layout
+   experiment (its two losses within the bf16 rtol; K1-K3's counts must
+   rise), the ViT ablation, the microbenchmarks (``all``, ``vit``,
+   ``flash4k --long``), the family microbench, the EEGNet stacked ablation
+   at S 8 and 42, MTCNN on 10 frames a size, and the farm's replay of
+   phase 27's ``metrics.jsonl``; every reading must name the card.
 
 Float32 checks run with TF32 off for both matmuls and cuDNN convolutions, so
 float32 means float32 throughout the run. ``CUBLAS_WORKSPACE_CONFIG`` is set
@@ -182,6 +200,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -199,6 +218,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores, where the f32 kernels compute
 # (atol, rtol) of each kernel against its plain version. bfloat16 outputs
 # (O, dQ, dK, dV, typically ~0.05 in size here) differ by an ulp or two where
 # the sum order differs, so 1e-2 / 2e-2 holds them while a key dropped from
@@ -313,27 +333,29 @@ def card_line() -> str:
 # -----------------------------------------------------------------------------
 
 
-def kernel_inputs(t: int, dtype, seed: int):
+def kernel_inputs(t: int, dtype, seed: int, bh: int = B * H):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return [
-        torch.randn(B * H, t, D, generator=gen, device="cuda").to(dtype) for _ in range(4)
+        torch.randn(bh, t, D, generator=gen, device="cuda").to(dtype) for _ in range(4)
     ]
 
 
-def check_kernels(t_pad: int, t: int, dtype_name: str, seed: int) -> dict:
+def check_kernels(t_pad: int, t: int, dtype_name: str, seed: int, bh: int = B * H,
+                  onepass: bool = True) -> dict:
     """Each kernel and the autograd path against the plain versions on the
-    same (BH, t_pad, D) inputs with ``t`` real keys, then a planted fault:
-    the plain versions with the last real key masked must fail the same
-    checks. Returns the max abs errors by kernel."""
+    same (``bh``, t_pad, D) inputs with ``t`` real keys, then a planted
+    fault: the plain versions with the last real key masked must fail the
+    same checks. K5 is checked too unless ``onepass`` is False. Returns the
+    max abs errors by kernel."""
     import torch
 
     from eav_tpu_torch.ops import attention as A
 
     dtype = getattr(torch, dtype_name)
     tol, tol_lse = TOLERANCE[dtype_name]["out"], TOLERANCE[dtype_name]["lse"]
-    q, k, v, do = kernel_inputs(t_pad, dtype, seed)
+    q, k, v, do = kernel_inputs(t_pad, dtype, seed, bh)
     o_p, lse_p = A.flash_fwd_plain(q, k, v, t)
     o, lse = A.flash_fwd(q, k, v, t)
     torch.cuda.synchronize()
@@ -353,25 +375,26 @@ def check_kernels(t_pad: int, t: int, dtype_name: str, seed: int) -> dict:
     torch.cuda.synchronize()
     for g, want in zip(grads, (dq_p, dk_p, dv_p)):
         max_err(g, want, *tol)
-    # K5, the one-pass forward, against its own plain version
-    o1_p, lse1_p = A.flash_onepass_plain(q, k, v, t)
-    o1, lse1 = A.flash_onepass(q, k, v, t)
-    torch.cuda.synchronize()
-    errs["flash_onepass"] = max(max_err(o1, o1_p, *tol), max_err(lse1, lse1_p, *tol_lse))
-    # planted fault: a mask one key short must fail every check above
+    # planted fault: a mask one key short must fail every check
     o_f, lse_f = A.flash_fwd_plain(q, k, v, t - 1)
     dk_f, dv_f = A.flash_dkv_plain(q, k, v, do, lse_p, di, t - 1)
     dq_f = A.flash_dq_plain(q, k, v, do, lse_p, di, t - 1)
-    o1_f, lse1_f = A.flash_onepass_plain(q, k, v, t - 1)
-    for got, want, tl, what in ((o, o_f, tol, "O"), (lse, lse_f, tol_lse, "LSE"),
-                                (dk, dk_f, tol, "dK"), (dv, dv_f, tol, "dV"),
-                                (dq, dq_f, tol, "dQ"), (o1, o1_f, tol, "K5 O"),
-                                (lse1, lse1_f, tol_lse, "K5 LSE")):
+    faults = [(o, o_f, tol, "O"), (lse, lse_f, tol_lse, "LSE"), (dk, dk_f, tol, "dK"),
+              (dv, dv_f, tol, "dV"), (dq, dq_f, tol, "dQ")]
+    if onepass:
+        # K5, the one-pass forward, against its own plain version
+        o1_p, lse1_p = A.flash_onepass_plain(q, k, v, t)
+        o1, lse1 = A.flash_onepass(q, k, v, t)
+        torch.cuda.synchronize()
+        errs["flash_onepass"] = max(max_err(o1, o1_p, *tol), max_err(lse1, lse1_p, *tol_lse))
+        o1_f, lse1_f = A.flash_onepass_plain(q, k, v, t - 1)
+        faults += [(o1, o1_f, tol, "K5 O"), (lse1, lse1_f, tol_lse, "K5 LSE")]
+    for got, want, tl, what in faults:
         must_reject(got, want, *tl, f"{what} against a mask at t_real={t - 1}")
-    log(f"kernels T={t_pad} (t_real {t}) {dtype_name}: max abs err "
+    log(f"kernels BH={bh} T={t_pad} (t_real {t}) {dtype_name}: max abs err "
         + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
         + f" (atol, rtol {tol}; LSE {tol_lse}); autograd ok; a mask at t_real={t - 1} "
-        "fails O, LSE, dK, dV, dQ and K5's O and LSE")
+        "fails " + ", ".join(f[3] for f in faults))
     return errs
 
 
@@ -445,12 +468,13 @@ def time_kernels(seed: int) -> dict:
     return {n: (*ms, *library[n]) for n, ms in times.items()}
 
 
-def kernel_bounds(t: int) -> dict:
-    """Least time (ms) and what bounds it, for each kernel at (B*H, t, D) in
-    bf16: matmul FLOPs at the bf16 peak, or each operand read once and each
-    output written once at the memory rate."""
-    bh = B * H
-    mat = bh * t * D * 2  # one (BH, T, D) bf16 operand
+def kernel_bounds(t: int, bh: int = B * H, dtype_name: str = "bfloat16") -> dict:
+    """Least time (ms) and what bounds it, for each kernel at (``bh``, t, D):
+    matmul FLOPs at the card's peak for the type (bf16 on the tensor cores;
+    the float32 kernels compute by FMA, at the float32 peak), or each
+    operand read once and each output written once at the memory rate."""
+    peak = PEAK_BF16_FLOPS if dtype_name == "bfloat16" else PEAK_F32_FLOPS
+    mat = bh * t * D * (2 if dtype_name == "bfloat16" else 4)  # one (BH, T, D) operand
     row = bh * t * 4  # one float32 (BH, T) row statistic
     work = {  # (FLOP, bytes)
         "flash_fwd": (4 * t * t * D * bh, 3 * mat + mat + row),
@@ -460,7 +484,7 @@ def kernel_bounds(t: int) -> dict:
     }
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
     return out
@@ -2906,9 +2930,10 @@ def check_bench_line(line: dict, launches: dict, name: str) -> None:
         raise AssertionError(f"bench launches a step {line['launches_per_step']}, not {launches}")
 
 
-def run_measurement_phase(card: str) -> None:
+def run_measurement_phase(card: str) -> str:
     """Phase 27: ``entry()``, the bench's three modes, ``sweep_sim`` and the
-    production sweep at cut sizes, each printing its JSON line."""
+    production sweep at cut sizes, each printing its JSON line -> the
+    sweep's ``metrics.jsonl``."""
     import tempfile
 
     import torch
@@ -2953,6 +2978,8 @@ def run_measurement_phase(card: str) -> None:
                                  f"{run.stderr[-3000:]}")
         with open(os.path.join(out, "journal.jsonl")) as f:
             done = {r["task"] for r in map(json.loads, f) if r.get("status") == "done"}
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            metrics = f.read()  # phase 28 replays it through the farm
         summary = json.loads(run.stdout[run.stdout.index('{\n  "sweep_journal_summary"'):])
     want = {f"subject0{s}_{m}" for s in (1, 2) for m in ("eeg", "audio", "vision", "fusion")}
     report = summary["sweep_journal_summary"]
@@ -2961,29 +2988,185 @@ def run_measurement_phase(card: str) -> None:
         raise AssertionError(f"production sweep: done {sorted(done)}, summary {sorted(report)}")
     if report["total"].get("gpu_util_pct") is None or name not in summary["device"]:
         raise AssertionError(f"production sweep summary without the card: {summary}")
+    return metrics
 
 
-def time_kernels_at(card: str, bh: int, what: str) -> None:
-    """K1-K3 at (``bh``, T 1214, D 64, bf16), a call in a run of 20 on the
-    free card, beside their bound at that shape: a TP rank's B·H/2, a
-    stack's S·B·H."""
+def time_kernels_at(card: str, bh: int, what: str, t: int = T_AST) -> dict:
+    """K1-K3 at (``bh``, ``t``, D 64, bf16) on the free card: a call in a run
+    of 20 beside its bound, the plain version's call (None where it runs out
+    of device memory) and the library's (SDPA's forward; aten's flash
+    backward, dQ, dK and dV in one call) in a run of 20, at ``what``: a TP
+    rank's B·H/2, a stack's S·B·H, a long T."""
     import torch
+    import torch.nn.functional as F
 
     from eav_tpu_torch.ops import attention as A
 
-    gen = torch.Generator(device="cuda").manual_seed(25)
-    q, k, v, do = (torch.randn(bh, T_AST, D, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(4))
-    o, lse = A.flash_fwd(q, k, v, T_AST)
+    q, k, v, do = kernel_inputs(t, torch.bfloat16, 40, bh)
+    o, lse = A.flash_fwd(q, k, v, t)
     di = (do.float() * o.float()).sum(-1)
-    calls = {"flash_fwd": lambda: A.flash_fwd(q, k, v, T_AST),
-             "flash_dkv": lambda: A.flash_dkv(q, k, v, do, lse, di, T_AST),
-             "flash_dq": lambda: A.flash_dq(q, k, v, do, lse, di, T_AST)}
-    bounds = kernel_bounds(T_AST)
-    log(f"K1-K3 at {what} (BH {bh}, T {T_AST}, D {D}, bf16), a call in a "
-        "run of 20: " + ", ".join(
-            f"{n} {cuda_ms_run(fn):.4f} ms (bound {bounds[n][0] * bh / (B * H):.4f} ms)"
-            for n, fn in calls.items()) + f" on {card}")
+    calls = {"flash_fwd": (lambda: A.flash_fwd(q, k, v, t),
+                           lambda: A.flash_fwd_plain(q, k, v, t)),
+             "flash_dkv": (lambda: A.flash_dkv(q, k, v, do, lse, di, t),
+                           lambda: A.flash_dkv_plain(q, k, v, do, lse, di, t)),
+             "flash_dq": (lambda: A.flash_dq(q, k, v, do, lse, di, t),
+                          lambda: A.flash_dq_plain(q, k, v, do, lse, di, t))}
+    q4, k4, v4, do4 = (x.view(1, bh, t, D) for x in (q, k, v, do))
+    aten = torch.ops.aten
+    fwd = aten._scaled_dot_product_flash_attention(q4, k4, v4)
+
+    def aten_bwd():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, *fwd[:6], 0.0, False, fwd[6], fwd[7])[0]
+
+    library = {"flash_fwd": cuda_ms_run(lambda: F.scaled_dot_product_attention(q4, k4, v4))}
+    library["flash_dkv"] = library["flash_dq"] = cuda_ms_run(aten_bwd)
+    bounds = kernel_bounds(t, bh)
+    row = {"t": t, "bh": bh}
+    for n, (fn, plain) in calls.items():
+        try:
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        except torch.cuda.OutOfMemoryError:
+            plain_ms = None
+        torch.cuda.empty_cache()
+        row[n] = {"ms_run": cuda_ms_run(fn), "plain_ms": plain_ms, "library_ms_run": library[n],
+                  "bound_ms": bounds[n][0], "bound_by": bounds[n][1]}
+    log(f"K1-K3 at {what} (BH {bh}, T {t}, D {D}, bf16), a call in a run of 20: " + ", ".join(
+        f"{n} {r['ms_run']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+        + (f"{r['plain_ms']:.3f}" if r["plain_ms"] is not None else "out of memory")
+        + f", library {r['library_ms_run']:.4f})" for n, r in row.items() if n.startswith("flash"))
+        + f" on {card}")
+    return row
+
+
+# -----------------------------------------------------------------------------
+# 28. the chip measurement scripts
+# -----------------------------------------------------------------------------
+
+# K1-K3 at long T against their plain versions, (T, B·H, type), with phase
+# 3's tolerances and planted fault: the shapes of scripts/microbench.py's
+# flash4k (T 4096 at B 2, H 8; T 8192 at B 1, H 8)
+LONG_T_CHECKS = ((4096, 16, "bfloat16"), (4096, 16, "float32"), (8192, 8, "bfloat16"))
+# and timed in bf16 there and at --long's T 16384 (B 1, H 8) and 32768 (B 1, H 4)
+LONG_T_TIMED = ((4096, 16), (8192, 8), (16384, 8), (32768, 4))
+CUT_EPOCHS = (1, 1)  # the flagships' frozen and unfrozen epochs in phase 28
+
+
+def check_lines(lines: list, name: str, what: str) -> list:
+    """Every reading of a script names the card; raises otherwise."""
+    if not lines:
+        raise AssertionError(f"{what}: no reading")
+    for line in lines:
+        text = json.dumps(line)
+        if name not in text:
+            raise AssertionError(f"{what}: a reading without the card: {text[:300]}")
+    return lines
+
+
+def run_scripts_phase(card: str, sweep_metrics: str) -> None:
+    """Phase 28: K1-K3 at long T, then every ported chip measurement script
+    at full width with its steps cut, each printing its JSON readings."""
+    import tempfile
+
+    import torch
+
+    from eav_tpu_torch.ops import attention as A
+    from eav_tpu_torch.scripts import (
+        ast_ablation,
+        ast_component_times,
+        bench,
+        eegnet_stacked_ablation,
+        family_microbench,
+        farm_makespan,
+        flash_layout_experiment,
+        measure_audio_flagship,
+        measure_audio_repeats,
+        measure_mtcnn,
+        measure_vision_flagship,
+        measure_vision_repeats,
+        microbench,
+        probe_frozen_cache,
+        vit_ablation,
+    )
+
+    name = torch.cuda.get_device_name(0)
+    clock = {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        clock[what] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    t0 = time.perf_counter()
+    for i, (t, bh, dt) in enumerate(LONG_T_CHECKS):
+        check_kernels(t, t, dt, seed=30 + i, bh=bh, onepass=False)
+        torch.cuda.empty_cache()
+    rows = [time_kernels_at(card, bh, f"T {t}", t) for t, bh in LONG_T_TIMED]
+    log(json.dumps({"long_t_kernels": rows, "device": card}))
+    clock["long-T kernels"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as out:
+        A.reset_launches()
+        lines = timed("measure_audio_flagship", lambda: check_lines(
+            measure_audio_flagship.measure(out, epochs=CUT_EPOCHS), name, "audio flagship"))
+        launched = bench.launches()
+        if min(launched.values()) == 0 or lines[1]["audio_flagship_warm"]["epochs"] != 2:
+            raise AssertionError(f"audio flagship: launches {launched}, {lines}")
+        log(f"the audio flagship launched {launched}")
+        timed("measure_audio_repeats", lambda: check_lines(
+            measure_audio_repeats.measure(out, reps=1, epochs=CUT_EPOCHS), name, "audio repeats"))
+        lines = timed("measure_vision_flagship", lambda: check_lines(
+            measure_vision_flagship.measure(out, epochs=CUT_EPOCHS), name, "vision flagship"))
+        if "error" in lines[2]["vision_stacked2"]:
+            raise AssertionError(f"the stacked vision pair did not finish: {lines[2]}")
+        timed("measure_vision_repeats", lambda: check_lines(
+            measure_vision_repeats.measure(out, reps=1, epochs=CUT_EPOCHS), name,
+            "vision repeats"))
+
+    lines = timed("probe_frozen_cache", lambda: check_lines(
+        probe_frozen_cache.probe(epochs=1), name, "frozen-cache probe"))
+    losses = lines[-1]["frozen_losses"]
+    if not all(math.isfinite(v) for v in losses["cached"] + losses["backbone"]):
+        raise AssertionError(f"frozen-cache probe: losses {losses}")
+    timed("ast_ablation", lambda: check_lines(ast_ablation.ablate(steps=3), name, "AST ablation"))
+    timed("ast_component_times", lambda: check_lines(
+        ast_component_times.measure(steps=3), name, "AST components"))
+    A.reset_launches()
+    lines = timed("flash_layout_experiment", lambda: check_lines(
+        flash_layout_experiment.experiment(steps=3), name, "layout experiment"))
+    launched = bench.launches()
+    rtol = TOLERANCE["bfloat16"]["out"][1]
+    if min(launched.values()) == 0 or not lines[-1]["rel"] <= rtol:
+        raise AssertionError(f"layout experiment: launches {launched}, {lines[-1]}")
+    log(f"the layout experiment: losses {lines[-1]['loss_match']}, relative "
+        f"{lines[-1]['rel']:.3g} (bf16 rtol {rtol}); K1-K3 launched {launched}")
+    timed("vit_ablation", lambda: check_lines(vit_ablation.ablate(steps=2), name, "ViT ablation"))
+    A.reset_launches()
+    timed("microbench all", lambda: check_lines(microbench.run("all", steps=2), name, "microbench"))
+    timed("microbench vit", lambda: check_lines(microbench.run("vit", steps=2), name,
+                                                "microbench vit"))
+    timed("microbench --long", lambda: check_lines(
+        microbench.run("flash4k", long=True, steps=2), name, "microbench --long"))
+    log(f"microbench's run launched {bench.launches()}")
+    timed("family_microbench", lambda: check_lines(
+        family_microbench.run(steps=3), name, "family microbench"))
+    for stack in (8, 42):
+        lines = timed(f"eegnet_stacked_ablation S {stack}", lambda: check_lines(
+            eegnet_stacked_ablation.ablate(stack=stack, iters=2), name, "EEGNet ablation"))
+        if not all(math.isfinite(v) for line in lines for v in line["first_step_loss"]):
+            raise AssertionError(f"EEGNet ablation: {lines}")
+    timed("measure_mtcnn", lambda: check_lines(measure_mtcnn.measure(frames=10), name, "MTCNN"))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "metrics.jsonl")
+        with open(path, "w") as f:
+            f.write(sweep_metrics)
+        lines = timed("farm_makespan", lambda: farm_makespan.project(path, workers=2, scale=0.02))
+    if lines[-1]["tasks_done"] != lines[0]["tasks"]:
+        raise AssertionError(f"farm replay: {lines}")
+    log("phase 28 seconds by script: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items())
+        + f" on {card}")
 
 
 def main() -> int:
@@ -3123,8 +3306,10 @@ def main() -> int:
         f"cuda:0, the farm's 2 workers on cuda:0) on {card}")
     mark("26. dry run")
     eeg_root.cleanup()
-    run_measurement_phase(card)
+    sweep_metrics = run_measurement_phase(card)
     mark("27. measurement entry points")
+    run_scripts_phase(card, sweep_metrics)
+    mark("28. chip measurement scripts")
 
     kernels = []
     for n, (source, replaces) in KERNEL_TABLE.items():

@@ -64,6 +64,24 @@ def _head_nchw(kernel, features: int) -> torch.Tensor:
     return _t(k.T)
 
 
+def transformer_layer_params_from_jax(layer: Mapping[str, Any], prefix: str = ""
+                                      ) -> Dict[str, torch.Tensor]:
+    """A Flax ``TransformerLayer`` tree -> the port's ``TransformerLayer``
+    state_dict (names under ``prefix``): the fused (in, 3, hidden) qkv
+    kernel as one (3·hidden, in) weight, rows ordered q, k, v."""
+    sd: Dict[str, torch.Tensor] = {}
+    _norm(sd, f"{prefix}ln1", layer["ln1"])
+    qkv = layer["attn"]["qkv"]
+    kernel = np.asarray(qkv["kernel"])  # (in, 3, hidden)
+    sd[f"{prefix}attn.qkv.weight"] = _t(kernel.reshape(kernel.shape[0], -1).T)
+    sd[f"{prefix}attn.qkv.bias"] = _t(np.asarray(qkv["bias"]).reshape(-1))
+    _dense(sd, f"{prefix}attn.out", layer["attn"]["out"])
+    _norm(sd, f"{prefix}ln2", layer["ln2"])
+    _dense(sd, f"{prefix}fc1", layer["fc1"])
+    _dense(sd, f"{prefix}fc2", layer["fc2"])
+    return sd
+
+
 def _backbone(params: Mapping[str, Any], tokens) -> Dict[str, torch.Tensor]:
     """The patch conv, the learned tokens named ``tokens``, the encoder and
     ``final_ln``: what AST and ViT share."""
@@ -73,16 +91,7 @@ def _backbone(params: Mapping[str, Any], tokens) -> Dict[str, torch.Tensor]:
     for name in tokens:
         sd[name] = _t(params[name])
     for layer_name, layer in params["encoder"].items():
-        pre = f"encoder.{layer_name}"
-        _norm(sd, f"{pre}.ln1", layer["ln1"])
-        qkv = layer["attn"]["qkv"]
-        kernel = np.asarray(qkv["kernel"])  # (in, 3, hidden)
-        sd[f"{pre}.attn.qkv.weight"] = _t(kernel.reshape(kernel.shape[0], -1).T)
-        sd[f"{pre}.attn.qkv.bias"] = _t(np.asarray(qkv["bias"]).reshape(-1))
-        _dense(sd, f"{pre}.attn.out", layer["attn"]["out"])
-        _norm(sd, f"{pre}.ln2", layer["ln2"])
-        _dense(sd, f"{pre}.fc1", layer["fc1"])
-        _dense(sd, f"{pre}.fc2", layer["fc2"])
+        sd.update(transformer_layer_params_from_jax(layer, f"encoder.{layer_name}."))
     _norm(sd, "final_ln", params["final_ln"])
     return sd
 

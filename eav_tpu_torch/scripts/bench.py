@@ -44,9 +44,10 @@ from typing import Optional
 
 import numpy as np
 
-# Published dense peaks (NVIDIA's data sheet, the SXM part): bf16 FLOP/s and
-# bytes/s of device memory, by a substring of the card's name.
-CARD_PEAKS = {"H100 80GB HBM3": (989e12, 3.35e12)}
+# Published dense peaks (NVIDIA's data sheet, the SXM part) by a substring of
+# the card's name: FLOP/s in bf16 (tensor cores) and in float32 outside the
+# tensor cores (TF32 off), and bytes/s of device memory.
+CARD_PEAKS = {"H100 80GB HBM3": {"bfloat16": 989e12, "float32": 67e12, "bytes": 3.35e12}}
 
 
 # -----------------------------------------------------------------------------
@@ -139,13 +140,38 @@ def ast_step_hbm_bytes(
     }
 
 
-def card_peaks(name: str):
-    """(bf16 FLOP/s, bytes/s) of the card named ``name``; raises on a card
-    the table does not know (a silent null MFU would hide it)."""
+def _card_row(name: str) -> dict:
     for key, peaks in CARD_PEAKS.items():
         if key in name:
             return peaks
     raise ValueError(f"no published peaks for the card {name!r}; add it to CARD_PEAKS")
+
+
+def card_peaks(name: str):
+    """(bf16 FLOP/s, bytes/s) of the card named ``name``; raises on a card
+    the table does not know (a silent null MFU would hide it)."""
+    row = _card_row(name)
+    return row["bfloat16"], row["bytes"]
+
+
+def card_peak_flops(name: str, dtype: str) -> float:
+    """The card's peak FLOP/s for ``dtype`` ('bfloat16', or 'float32' with
+    TF32 off); raises on a card or a type the table does not know."""
+    row = _card_row(name)
+    if dtype not in row:
+        raise ValueError(f"no published {dtype} peak for the card {name!r}")
+    return row[dtype]
+
+
+def achieved(flop_per_s: float, device, dtype: str = "bfloat16") -> dict:
+    """``flop_per_s`` as TFLOP/s and as a share of the card's ``dtype`` peak
+    (``card_peak_flops``); both None off the card, which has no device rate."""
+    if device.type != "cuda":
+        return {"tflops": None, "mfu_pct": None}
+    import torch
+
+    peak = card_peak_flops(torch.cuda.get_device_name(device), dtype)
+    return {"tflops": round(flop_per_s / 1e12, 3), "mfu_pct": round(100.0 * flop_per_s / peak, 2)}
 
 
 def ast_roofline(samples_per_sec: float, peak_flops: float, peak_bytes: float,
@@ -209,6 +235,33 @@ def launches() -> dict:
     from eav_tpu_torch.ops import attention as A
 
     return {fn.__name__: fn.launches for fn in (A.flash_fwd, A.flash_dkv, A.flash_dq)}
+
+
+def time_call(fn, steps: int, device) -> dict:
+    """``steps`` calls of ``fn`` after a warm one, each fenced: the median
+    host-clock ms of a call around ``torch.cuda.synchronize()``
+    (``wall_ms``) and the median ms between two CUDA events around it
+    (``device_ms``; None off the card, where there is no device clock)."""
+    import torch
+
+    on_card = device.type == "cuda"
+    fn()
+    if on_card:
+        torch.cuda.synchronize(device)
+    walls, events = [], []
+    for _ in range(steps):
+        if on_card:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        fn()
+        if on_card:
+            end.record()
+            torch.cuda.synchronize(device)
+            events.append(start.elapsed_time(end))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"wall_ms": round(float(np.median(walls)), 3),
+            "device_ms": round(float(np.median(events)), 3) if on_card else None}
 
 
 def time_steps(step, steps: int, device) -> dict:
