@@ -144,7 +144,10 @@ Phases, each of which fails the run on error:
    ``mat5``, equal; 10 wavs through ``WavPrefetcher`` and ``read_wav``,
    equal; both timed; with libav, the MP4 fixture
    (``eav_tpu_torch/fixtures``) against the cv2 frames stored beside it
-   (without libav that check is reported as not made);
+   (without libav that check is reported as not made); with cv2,
+   ``scripts/bench_video_decode.py`` at 4 clips of 320 x 240 (every
+   variant's frame count equal), its host numbers logged; without cv2, its
+   ``main`` must raise ``ImportError`` having printed nothing;
 24. data parallelism: at NCCL world size 1 (this process), the full-width
    EEGNet fit with a ``data`` mesh equals the plain fit bit for bit in the
    deterministic mode; ``run_vision`` with the full-width ``vit_finetune``
@@ -2620,9 +2623,10 @@ def run_native_phase(card: str, eeg_root: str) -> None:
                 raise AssertionError(f"{f}: the prefetcher's decode differs from read_wav's")
         log(f"  {len(files)} wavs of 20 s at 44.1 kHz: WavPrefetcher (4 threads) "
             f"{t_native * 1e3:.1f} ms, read_wav {t_python * 1e3:.1f} ms, equal, on {host}")
+    check_video_decode_bench(host)
     if not libav:
         log("  MP4: NOT checked: this machine has no ffmpeg development files, so the native "
-            "decoder is not built; video decoding on it waits for them (and it has no cv2)")
+            "decoder is not built; native video decoding on it waits for them")
         return
     t0 = time.perf_counter()
     frames = native.read_mp4_strided(str(FIXTURES / "clip.mp4"), STRIDE, FRAMES)
@@ -2634,6 +2638,43 @@ def run_native_phase(card: str, eeg_root: str) -> None:
                              f"|diff| {diff.mean() if diff.size else 'n/a'}")
     log(f"  MP4 fixture {frames.shape}: native {t_native * 1e3:.1f} ms, against cv2's frames "
         f"mean |diff| {diff.mean():.3f}, max {diff.max()}, on {host}")
+
+
+def check_video_decode_bench(host: str) -> None:
+    """``scripts/bench_video_decode.py`` on this machine's host. With cv2, its
+    ``main`` at 4 clips of 320 x 240 (it raises unless every variant decodes
+    the same frame count), its lines logged; without cv2, ``main`` must raise
+    ``ImportError`` having printed nothing."""
+    import contextlib
+    import io
+
+    from eav_tpu_torch.scripts import bench_video_decode
+
+    argv = ["--clips", "4", "--wh", "320x240"]
+    out = io.StringIO()
+    try:
+        import cv2
+    except ImportError:
+        with contextlib.redirect_stdout(out):
+            try:
+                bench_video_decode.main(argv)
+            except ImportError:
+                pass
+            else:
+                raise AssertionError("bench_video_decode.main ran without cv2")
+        if out.getvalue():
+            raise AssertionError(f"bench_video_decode printed without cv2: {out.getvalue()!r}")
+        log(f"  bench_video_decode: no cv2 on {host}, so main raised ImportError and printed "
+            "nothing; host-side decode timing waits for a decoder on this machine")
+        return
+    log(f"  bench_video_decode: cv2 {cv2.__version__} on {host}")
+    with contextlib.redirect_stdout(out):
+        lines = bench_video_decode.main(argv)
+    variants = [line["variant"] for line in lines]
+    if variants[:2] != ["reference_serial", "grab_serial"] or variants[-1] != "threaded":
+        raise AssertionError(f"bench_video_decode printed the variants {variants}")
+    for line in lines:
+        log(f"  bench_video_decode on {host}: {json.dumps(line)}")
 
 
 # -----------------------------------------------------------------------------

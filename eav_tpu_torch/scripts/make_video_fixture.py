@@ -6,9 +6,9 @@ frames cv2 decodes from it:
 ``eav_tpu_torch/fixtures/clip.mp4`` (60 frames of 64 x 48, mp4v, 30 fps,
 a moving colour gradient, as ``tests/test_native.py`` draws its clips) and
 ``clip_frames.npz`` (``frames``: frames 0, 6, ..., 54 as cv2's grab loop
-returns them, RGB uint8). The card's machine has libav's development files
-or not, and no cv2: the phase decodes the clip with the native library and
-holds it to the stored frames. Needs cv2; run where it is installed.
+returns them, RGB uint8). The card's machine may lack libav's development
+files and cv2: where the native library has libav, the phase decodes the
+clip with it and holds it to the stored frames. Needs cv2; run where it is installed.
 """
 
 from __future__ import annotations

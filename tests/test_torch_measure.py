@@ -15,9 +15,11 @@ production path.
 """
 
 import ast
+import collections
 import importlib.util
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -138,8 +140,28 @@ def test_vision_flagship_measures_run_vision(tmp_path):
     row = pipes.run_vision(2).metrics
     for k in ("accuracy", "epochs"):  # (the stacked pair rewrote the script's archives)
         assert warm[k] == row[k], k
+    assert lines[3]["serial_42_subjects_minutes"] == round(
+        42 * lines[3]["warm_subject_seconds"] / 60, 3)
     _assert_keys_are_jaxs(lines, "measure_vision_flagship",
                           ("vision_flagship_cold", "vision_flagship_warm", "vision_stacked2"))
+
+
+@pytest.mark.parametrize("modality", ["audio", "vision"])
+def test_flagship_minutes_come_from_the_printed_seconds(tmp_path, monkeypatch, modality):
+    """The 42-subject minutes are 42 times the printed (rounded) warm
+    seconds, JAX's rule: a warm wall of 0.84053 s prints 0.841 s and 0.589
+    min, where the unrounded wall would give 0.588."""
+    script = AF if modality == "audio" else VF
+    stub = types.SimpleNamespace(metrics=collections.defaultdict(int))
+    monkeypatch.setattr(script, "timed", lambda run, subject: (stub, 0.84053))
+    if modality == "audio":
+        lines = AF.measure(str(tmp_path), "cpu", EPOCHS, frames=128, **AST_TINY)
+    else:
+        lines = VF.measure(str(tmp_path), "cpu", EPOCHS, skip_stacked=True, size=32, **VIT_TINY)
+    summary = lines[-1]
+    assert summary["warm_subject_seconds"] == 0.841
+    assert summary["serial_42_subjects_minutes"] == round(
+        42 * summary["warm_subject_seconds"] / 60, 3) == 0.589
 
 
 def test_stacked_pair_reads_out_of_memory(tmp_path, monkeypatch):

@@ -266,7 +266,7 @@ def test_mp4_errors_raise_without_falling_back(tmp_path, monkeypatch):
 
 
 def test_verify_probe_decodes_natively_without_cv2(tmp_path, monkeypatch):
-    """The card's machine has no cv2: the data check's video probe goes
+    """On a machine without cv2 the data check's video probe goes
     through the native decoder."""
     from eav_tpu_torch.ingest.verify import verify_data_root
 

@@ -220,12 +220,13 @@ def test_port_and_chip_smoke_import_without_jax():
             "eav_tpu_torch.models.norm", "eav_tpu_torch.entry", "eav_tpu_torch.scripts.bench",
             "eav_tpu_torch.scripts.sweep_sim",
             "eav_tpu_torch.scripts.run_production_sweep"} <= set(names)
-    # the chip measurement scripts
+    # the measurement scripts (the chip's and the host-only video decode bench)
     assert {f"eav_tpu_torch.scripts.{n}" for n in (
         "measure_audio_flagship", "measure_audio_repeats", "measure_vision_flagship",
         "measure_vision_repeats", "probe_frozen_cache", "ast_ablation", "ast_component_times",
         "flash_layout_experiment", "vit_ablation", "microbench", "family_microbench",
-        "eegnet_stacked_ablation", "measure_mtcnn", "farm_makespan")} <= set(names)
+        "eegnet_stacked_ablation", "measure_mtcnn", "farm_makespan",
+        "bench_video_decode")} <= set(names)
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(tmp_path, monkeypatch):

@@ -137,7 +137,7 @@ def test_verify_data_cli_exit_codes_equal_jax(tree, capsys):
 
 
 def test_no_probe_reads_no_video(tree, monkeypatch):
-    """``probe_video=False`` decodes nothing (the card's machine has no cv2):
+    """``probe_video=False`` decodes nothing (for a machine without a decoder):
     a decoder that raises is never called."""
     import eav_tpu_torch.ingest.video as video
 
