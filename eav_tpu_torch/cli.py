@@ -404,7 +404,9 @@ def main(argv=None) -> int:
                      help="accepted for JAX command lines; no effect in the port")
     _add_overrides(run)
     run.add_argument("--profile", default=None, metavar="LOGDIR",
-                     help="wrap the sweep in a torch.profiler trace (Chrome trace in LOGDIR)")
+                     help="wrap the sweep in a torch.profiler trace (Chrome trace in LOGDIR); "
+                          "it carries the port's spans: sweep.task, fit.epoch, fit.frozen_cache, "
+                          "trainer.train_step and its phases, trainer.evaluate, attention.layout")
     run.set_defaults(fn=cmd_run)
 
     agg = sub.add_parser("aggregate")

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from eav_tpu_torch.core.config import SweepConfig
+from eav_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -147,7 +148,8 @@ class SweepRunner:
         attempts = self._attempts(tid, state)
         t0 = time.perf_counter()
         try:
-            result = task_fn(subject, modality)
+            with span("sweep.task"):
+                result = task_fn(subject, modality)
             wall = time.perf_counter() - t0
             metrics = dict(result.metrics)
             metrics.update(subject=subject, modality=modality, wall_clock_s=round(wall, 3))
@@ -434,7 +436,8 @@ class SweepRunner:
                    state: Dict[str, dict], verbose: bool) -> None:
         t0 = time.perf_counter()
         try:
-            results = batch_fn(group)
+            with span("sweep.task"):
+                results = batch_fn(group)
             wall = time.perf_counter() - t0
             for s in group:
                 tid = self._task_id(s, modality)
@@ -463,7 +466,8 @@ class SweepRunner:
             metrics = None
             try:
                 t1 = time.perf_counter()
-                result = self.task_fn(s, modality)
+                with span("sweep.task"):
+                    result = self.task_fn(s, modality)
                 wall = time.perf_counter() - t1
                 metrics = dict(result.metrics)
                 metrics.update(subject=s, modality=modality, wall_clock_s=round(wall, 3))

@@ -40,7 +40,8 @@ from torch import nn
 from torch.func import functional_call, vjp
 
 from eav_tpu_torch.models.dropout import Dropout
-from eav_tpu_torch.ops.attention import flash_attention
+from eav_tpu_torch.ops.attention import LAYOUT, flash_attention
+from eav_tpu_torch.utils.profiling import span
 
 ATTN_IMPLS = ("math", "flash", "auto")
 REMAT_MODES = ("none", "attn", "full")
@@ -167,7 +168,8 @@ class MultiHeadSelfAttention(nn.Module):
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / root
             probs = torch.softmax(scores, dim=-1)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        ctx = ctx.reshape(b, t, self.heads * d)
+        with span(LAYOUT, device=True):  # O back to (B, T, H·D), a copy unless contiguous
+            ctx = ctx.reshape(b, t, self.heads * d)
         if self.tp_group is not None:
             return row_parallel(ctx, self.out, self.dtype, self.tp_group)
         return dense(ctx, self.out, self.dtype)

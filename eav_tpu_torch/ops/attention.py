@@ -29,6 +29,11 @@ one to the other. Each wrapper counts its kernel launches in ``.launches``,
 under ``ops/build.LOCK`` (farm workers launch from several threads).
 ``Di = rowsum(dO * O)`` stays plain PyTorch in float32, as it stayed XLA.
 
+The copies between the (B, T, H, D) layout and the kernels' head-major one
+(``_to_bh``, ``_fold``, dO made contiguous, and O's layout back in
+``models/transformer.py``) run inside the span ``LAYOUT``, timed on the
+card while a profiler runs (``utils/profiling.span``).
+
 Under ``torch.func.vmap`` (a stacked fit, ``parallel/subject.py``) the
 autograd functions fold the stack axis into the head-major one: S stacked
 (BH, T, D) operands become one (S·BH, T, D) call, so one launch serves the
@@ -46,10 +51,12 @@ from typing import Tuple
 import torch
 
 from eav_tpu_torch.ops import build
+from eav_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
 MAX_BH = 65535  # B·H lies on blockIdx.y, whose extent CUDA caps here
+LAYOUT = "attention.layout"  # the span of the layout copies around the kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -348,8 +355,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, t_real: int):
         s = info.batch_size
-        o, lse = FlashAttention.apply(*(_fold(x, d, s) for x, d in zip((q, k, v), in_dims)),
-                                      t_real)
+        with span(LAYOUT, device=True):
+            folded = [_fold(x, d, s) for x, d in zip((q, k, v), in_dims)]
+        o, lse = FlashAttention.apply(*folded, t_real)
         return (_unfold(o, s), _unfold(lse, s)), (0, 0)
 
 
@@ -364,7 +372,8 @@ class FlashAttentionBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, o, lse, do, t_real: int):
-        do = do.contiguous()
+        with span(LAYOUT, device=True):
+            do = do.contiguous()
         di = (do.float() * o.float()).sum(dim=-1)
         dk, dv = flash_dkv(q, k, v, do, lse, di, t_real)
         return flash_dq(q, k, v, do, lse, di, t_real), dk, dv
@@ -380,7 +389,8 @@ class FlashAttentionBackward(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, do, t_real: int):
         s = info.batch_size
-        folded = (_fold(x, d, s) for x, d in zip((q, k, v, o, lse, do), in_dims))
+        with span(LAYOUT, device=True):
+            folded = [_fold(x, d, s) for x, d in zip((q, k, v, o, lse, do), in_dims)]
         grads = FlashAttentionBackward.apply(*folded, t_real)
         return tuple(_unfold(g, s) for g in grads), (0, 0, 0)
 
@@ -398,7 +408,9 @@ def _to_bh(x):
 def flash_attention(q, k, v):
     """Multi-head attention in the (B, T, H, D) layout, scale 1/sqrt(D)."""
     b, t, h, d = q.shape
-    o = flash_attention_bh(_to_bh(q), _to_bh(k), _to_bh(v), t)
+    with span(LAYOUT, device=True):
+        q, k, v = _to_bh(q), _to_bh(k), _to_bh(v)
+    o = flash_attention_bh(q, k, v, t)
     return o.reshape(b, h, t, d).permute(0, 2, 1, 3)
 
 
@@ -406,5 +418,7 @@ def flash_onepass_attention(q, k, v):
     """The one-pass forward in the (B, T, H, D) layout, scale 1/sqrt(D): the
     counterpart of the experiment's ``onepass_forward``. Forward only."""
     b, t, h, d = q.shape
-    o, _ = flash_onepass(_to_bh(q), _to_bh(k), _to_bh(v), t)
+    with span(LAYOUT, device=True):
+        q, k, v = _to_bh(q), _to_bh(k), _to_bh(v)
+    o, _ = flash_onepass(q, k, v, t)
     return o.reshape(b, h, t, d).permute(0, 2, 1, 3)

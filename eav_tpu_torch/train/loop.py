@@ -82,6 +82,7 @@ from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, maxnorm_project
 from eav_tpu_torch.models.dropout import set_generator, set_rows
 from eav_tpu_torch.models.norm import set_group
 from eav_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_index, axis_size, share
+from eav_tpu_torch.utils.profiling import span
 
 
 class TrainResult(NamedTuple):
@@ -223,10 +224,11 @@ class Trainer:
 
     @torch.no_grad()
     def _batched_apply(self, x: torch.Tensor, batch_size: Optional[int], mode: str) -> torch.Tensor:
-        self.model.eval()
-        n = x.shape[0]
-        bs = min(batch_size or self.cfg.eval_batch_size, n)
-        return torch.cat([self._apply(x[i : i + bs], mode) for i in range(0, n, bs)])
+        with span("trainer.evaluate"):
+            self.model.eval()
+            n = x.shape[0]
+            bs = min(batch_size or self.cfg.eval_batch_size, n)
+            return torch.cat([self._apply(x[i : i + bs], mode) for i in range(0, n, bs)])
 
     def _load(self, params) -> None:
         if params is not None:
@@ -251,23 +253,31 @@ class Trainer:
         both still on the device. In a data-parallel fit ``x`` is this
         rank's share of a batch of ``batch_rows`` rows: the loss is the
         share's part of the batch's mean, and the gradients are summed over
-        the data axis before the step."""
+        the data axis before the step. Its phases are the port's spans
+        ``trainer.forward``, ``trainer.backward``, ``trainer.optimizer``
+        (timed on the card too) and ``trainer.maxnorm``, inside
+        ``trainer.train_step``."""
         cfg = self.cfg
-        logits = self._apply(x, mode)
-        loss = cross_entropy(logits, y, cfg.compat_softmax)
-        n, total = len(y), batch_rows or len(y)
-        if total != n:  # a share of the batch: sum over ranks = the batch's mean
-            loss = loss * (n / total) if n else logits.sum() * 0.0
-        if (cfg.l1_reg or cfg.l2_reg) and self._shards.index == 0:
-            # Keras l1_l2 (the audio notebook's SCNN), once over the data axis
-            loss = loss + kernel_penalty(self.model, cfg.l1_reg, cfg.l2_reg)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self._shards.sum_grads_(self.model)
-        opt.step()
-        if self.maxnorm_rules:
-            maxnorm_project(self.model, self.maxnorm_rules)
-        return loss.detach(), (logits.detach().argmax(-1) == y).sum()
+        with span("trainer.train_step"):
+            with span("trainer.forward"):
+                logits = self._apply(x, mode)
+                loss = cross_entropy(logits, y, cfg.compat_softmax)
+                n, total = len(y), batch_rows or len(y)
+                if total != n:  # a share of the batch: sum over ranks = the batch's mean
+                    loss = loss * (n / total) if n else logits.sum() * 0.0
+                if (cfg.l1_reg or cfg.l2_reg) and self._shards.index == 0:
+                    # Keras l1_l2 (the audio notebook's SCNN), once over the data axis
+                    loss = loss + kernel_penalty(self.model, cfg.l1_reg, cfg.l2_reg)
+            with span("trainer.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                self._shards.sum_grads_(self.model)
+            with span("trainer.optimizer", device=True):
+                opt.step()
+            if self.maxnorm_rules:
+                with span("trainer.maxnorm"):
+                    maxnorm_project(self.model, self.maxnorm_rules)
+            return loss.detach(), (logits.detach().argmax(-1) == y).sum()
 
     def _train_acc(self, correct: torch.Tensor, n: int, bs: int) -> torch.Tensor:
         """An epoch's train accuracy from its per-batch correct counts (the
@@ -407,35 +417,39 @@ class Trainer:
                 group["lr"] = phase.lr
             if phase.freeze and self._frozen_cache_ok():
                 mode = "head"
-                px, pe = (shards.gather(lambda part: self._batched_apply(part, None, "features"), x)
-                          for x in (tr_x, te_x))
+                with span("fit.frozen_cache"):
+                    px, pe = (shards.gather(
+                        lambda part: self._batched_apply(part, None, "features"), x)
+                        for x in (tr_x, te_x))
             else:
                 mode, px, pe = "full", tr_x, te_x
             for epoch in range(phase.epochs):
-                # Trainer_uni's sticky eval mode: after the phase's first
-                # epoch, train with dropout off and BN on its running stats
-                self.model.train(not (cfg.compat_sticky_eval and epoch > 0))
-                if cfg.shuffle:
-                    perm = torch.randperm(n_train, generator=gen).to(self.device)
-                else:
-                    perm = torch.arange(n_train, device=self.device)
-                losses, correct = [], []
-                for i in range(0, n_train, bs):  # last batch at its true size
-                    idx = perm[i : i + bs]
-                    lo, hi = shards.rows(len(idx))  # this rank's share
-                    if shards.group is not None:
-                        set_rows(self.model, (lo, hi, len(idx)))
-                    loss, corr = self.train_step(opt, px[idx[lo:hi]], tr_y[idx[lo:hi]], mode,
-                                                 batch_rows=len(idx))
-                    losses.append(loss)
-                    correct.append(corr)
-                te_logits = shards.gather(lambda part: self._batched_apply(part, None, mode), pe)
-                hist["loss"].append(shards.sum_(torch.stack(losses)).mean())
-                correct = shards.sum_(torch.stack(correct))
-                hist["train_acc"].append(self._train_acc(correct, n_train, bs))
-                hist["test_acc"].append(self._test_acc(te_logits, te_y))
-                if cfg.keep_epoch_logits:
-                    epoch_logits.append(te_logits)
+                with span("fit.epoch"):
+                    # Trainer_uni's sticky eval mode: after the phase's first
+                    # epoch, train with dropout off and BN on its running stats
+                    self.model.train(not (cfg.compat_sticky_eval and epoch > 0))
+                    if cfg.shuffle:
+                        perm = torch.randperm(n_train, generator=gen).to(self.device)
+                    else:
+                        perm = torch.arange(n_train, device=self.device)
+                    losses, correct = [], []
+                    for i in range(0, n_train, bs):  # last batch at its true size
+                        idx = perm[i : i + bs]
+                        lo, hi = shards.rows(len(idx))  # this rank's share
+                        if shards.group is not None:
+                            set_rows(self.model, (lo, hi, len(idx)))
+                        loss, corr = self.train_step(opt, px[idx[lo:hi]], tr_y[idx[lo:hi]], mode,
+                                                     batch_rows=len(idx))
+                        losses.append(loss)
+                        correct.append(corr)
+                    te_logits = shards.gather(
+                        lambda part: self._batched_apply(part, None, mode), pe)
+                    hist["loss"].append(shards.sum_(torch.stack(losses)).mean())
+                    correct = shards.sum_(torch.stack(correct))
+                    hist["train_acc"].append(self._train_acc(correct, n_train, bs))
+                    hist["test_acc"].append(self._test_acc(te_logits, te_y))
+                    if cfg.keep_epoch_logits:
+                        epoch_logits.append(te_logits)
             if checkpoint_dir is not None and writes_files():
                 from eav_tpu_torch.core.checkpoint import save_pytree
 

@@ -2,9 +2,14 @@
 
 - :func:`fence`: wait for the device that holds (the first tensor of) a
   result; CUDA calls return before the card has finished.
-- :class:`Throughput`: a fenced samples/s meter.
+- :func:`span`: a named span of the port's own (the trainer's phases,
+  attention's layout copies), on the profiler's clock while a
+  ``torch.profiler`` runs and nothing but one flag check otherwise; with
+  ``device=True`` also timed on the card by a pair of CUDA events, read
+  back by :func:`take_spans`.
 - :func:`trace`: a ``torch.profiler`` trace of CPU and CUDA activity around
-  a region, written as a Chrome trace (``chrome://tracing``, Perfetto).
+  a region, written as a Chrome trace (``chrome://tracing``, Perfetto); it
+  carries the port's spans.
 - :func:`debug_nans`: raise ``FloatingPointError`` at the first NaN a
   module's forward or a backward produces (JAX's ``jax_debug_nans``).
 """
@@ -13,8 +18,8 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Iterator, Optional
+import threading
+from typing import Iterator, List, Tuple
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -30,26 +35,93 @@ def fence(x) -> None:
             return
 
 
-class Throughput:
-    """Steady-state samples/s of a region that ends in a :func:`fence`.
+SPAN_CAPACITY = 65536  # device-timed spans kept until ``take_spans``; later ones are counted
+# the profiler's flag, per thread: the autograd engine's threads take it from
+# the thread that runs the backward, threads started by the program do not
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()  # what ``span`` returns with no profiler running
 
-    >>> meter = Throughput()
-    >>> with meter.measure(n_samples=batch * steps):
-    ...     for _ in range(steps): out = step(...)
-    ...     fence(out)
-    >>> meter.samples_per_sec
-    """
 
-    def __init__(self):
-        self.samples_per_sec: Optional[float] = None
-        self.wall_clock_s: Optional[float] = None
+class SpanStore:
+    """Device-timed spans, (name, entry event, exit event) in the order they
+    closed, up to ``capacity``; spans past it are dropped and counted. Spans
+    close on the caller's thread and on the autograd engine's, hence the
+    lock."""
 
-    @contextlib.contextmanager
-    def measure(self, n_samples: int) -> Iterator[None]:
-        t0 = time.perf_counter()
-        yield
-        self.wall_clock_s = time.perf_counter() - t0
-        self.samples_per_sec = n_samples / self.wall_clock_s
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._spans: list = []
+        self._dropped = 0
+
+    def add(self, name: str, start, end) -> None:
+        with self._lock:
+            if len(self._spans) < self.capacity:
+                self._spans.append((name, start, end))
+            else:
+                self._dropped += 1
+
+    def take(self) -> Tuple[List[Tuple[str, float]], int]:
+        """([(name, ms from the entry event to the exit event)], spans
+        dropped), then the store is empty. Read after a fence: an event the
+        stream has not reached raises."""
+        with self._lock:
+            spans, dropped = self._spans, self._dropped
+            self._spans, self._dropped = [], 0
+        return [(name, a.elapsed_time(b)) for name, a, b in spans], dropped
+
+
+_STORE = SpanStore()
+
+
+class _Span:
+    """An open span: a ``record_function`` range and, when ``timed`` on a
+    CUDA stream that is not capturing a graph, a pair of timing events
+    recorded on the current stream at entry and exit."""
+
+    __slots__ = ("name", "_range", "_events")
+
+    def __init__(self, name: str, timed: bool):
+        self.name = name
+        self._range = torch.profiler.record_function(name)
+        self._events = None
+        if timed and torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing():
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self) -> None:
+        self._range.__enter__()
+        if self._events is not None:
+            self._events[0].record()
+
+    def __exit__(self, *exc) -> bool:
+        if self._events is not None:
+            self._events[1].record()
+            _STORE.add(self.name, *self._events)
+        self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str, device: bool = False):
+    """A context manager naming the block ``name`` in a ``torch.profiler``
+    trace: a ``record_function`` range (a ``user_annotation`` on the
+    profiler's clock, nested under the caller's span, on the thread that
+    runs it). With ``device`` and a CUDA current stream that is not
+    capturing a graph, the block is also timed on that stream by two CUDA
+    events, kept for :func:`take_spans` (event to event: any wait of the
+    stream inside the block counts). With no profiler running it costs one
+    flag check: no range, no event, no allocation. Nothing inside the block
+    is moved, fenced or copied."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, device)
+
+
+def take_spans() -> Tuple[List[Tuple[str, float]], int]:
+    """The device-timed spans closed since the last call: ([(name, device
+    ms)], the count dropped past ``SPAN_CAPACITY``); clears them. Read after
+    a fence."""
+    return _STORE.take()
 
 
 @contextlib.contextmanager

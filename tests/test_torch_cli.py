@@ -251,12 +251,14 @@ def test_cli_profile_writes_a_trace(tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("conv2d" in e.get("name", "") for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"sweep.task", "fit.epoch", "trainer.train_step", "trainer.evaluate"} <= spans
 
 
 def test_debug_nans_raises_and_restores():
     """A NaN from a module's forward and one from a backward both raise
     ``FloatingPointError``; the hook and the anomaly mode are gone after."""
-    from eav_tpu_torch.utils.profiling import Throughput, debug_nans, fence
+    from eav_tpu_torch.utils.profiling import debug_nans, fence
 
     before = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
     lin = torch.nn.Linear(3, 2)
@@ -272,8 +274,5 @@ def test_debug_nans_raises_and_restores():
     assert torch.isnan(lin(bad)).any()  # no hook left
     with debug_nans(False):
         lin(bad)
-    meter = Throughput()
-    with meter.measure(n_samples=10):
-        fence({"a": lin(torch.ones(1, 3)), "b": [np.ones(2)]})
-        fence({})
-    assert meter.samples_per_sec > 0 and meter.wall_clock_s > 0
+    fence({"a": lin(torch.ones(1, 3)), "b": [np.ones(2)]})
+    fence({})
