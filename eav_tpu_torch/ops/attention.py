@@ -26,7 +26,9 @@ Each kernel has a plain PyTorch version (``*_plain``) with the same outputs
 and the same rounding points. A wrapper runs the plain version for tensors on
 the CPU and the CUDA kernel for tensors on a GPU; it never falls back from
 one to the other. Each wrapper counts its kernel launches in ``.launches``,
-under ``ops/build.LOCK`` (farm workers launch from several threads).
+under ``ops/build.LOCK`` (farm workers launch from several threads); a launch
+captured into a CUDA graph is counted when the graph replays
+(``tally_launches``, ``add_launches``).
 ``Di = rowsum(dO * O)`` stays plain PyTorch in float32, as it stayed XLA.
 
 The copies between the (B, T, H, D) layout and the kernels' head-major one
@@ -44,9 +46,10 @@ wrappers refuse a larger B·H, folded or not.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -93,10 +96,44 @@ def _library() -> ctypes.CDLL:
         return _lib
 
 
-def _count(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel (``+=`` is not atomic across threads)."""
+# the streams under ``tally_launches`` (by handle) -> {wrapper: launches captured}
+_TALLIES: Dict[int, Dict] = {}
+
+
+def _count(wrapper, stream: Optional[int] = None) -> None:
+    """One launch of ``wrapper``'s kernel (``+=`` is not atomic across
+    threads); on a stream under ``tally_launches``, counted in its tally
+    instead."""
     with build.LOCK:
-        wrapper.launches += 1
+        tally = _TALLIES.get(stream)
+        if tally is None:
+            wrapper.launches += 1
+        else:
+            tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches(stream: torch.cuda.Stream) -> Iterator[Dict]:
+    """Inside the block, the kernels launched on ``stream`` (from any thread:
+    the autograd engine's launches the backward) are counted into the
+    yielded dict, {wrapper: launches}, and not into ``.launches``: a CUDA
+    graph's capture, whose kernels run only when the graph replays
+    (``add_launches``)."""
+    tally: Dict = {}
+    with build.LOCK:
+        _TALLIES[stream.cuda_stream] = tally
+    try:
+        yield tally
+    finally:
+        with build.LOCK:
+            del _TALLIES[stream.cuda_stream]
+
+
+def add_launches(tally: Dict) -> None:
+    """Count a tally's launches (a graph's replay runs them again)."""
+    with build.LOCK:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
 
 
 def _scale(d: int) -> float:
@@ -138,7 +175,10 @@ def _check_rows(bh: int, t_pad: int, *rows: torch.Tensor) -> None:
             raise ValueError(f"lse / di must be float32 ({bh}, {t_pad}), got {r.dtype} {tuple(r.shape)}")
 
 
-def _launch(symbol: str, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: int) -> None:
+def _launch(kernel, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: int) -> None:
+    """Launch ``kernel``'s CUDA symbol (``eav_<name>``) on torch's current
+    stream and count it."""
+    symbol = f"eav_{kernel.__name__}"
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{symbol}: operands must be contiguous")
@@ -156,6 +196,7 @@ def _launch(symbol: str, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: 
     if rc != 0:
         msg = lib.eav_cuda_error_string(rc).decode()
         raise RuntimeError(f"{symbol} launch failed: {msg} ({rc})")
+    _count(kernel, stream)
 
 
 # -----------------------------------------------------------------------------
@@ -231,8 +272,7 @@ def flash_fwd(q, k, v, t_real: int):
         return flash_fwd_plain(q, k, v, t_real)
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
-    _launch("eav_flash_fwd", q, (q, k, v, o, lse), bh, t_pad, t_real)
-    _count(flash_fwd)
+    _launch(flash_fwd, q, (q, k, v, o, lse), bh, t_pad, t_real)
     return o, lse
 
 
@@ -243,8 +283,7 @@ def flash_dkv(q, k, v, do, lse, di, t_real: int):
     if _on_cpu(q, k, v, do, lse, di):
         return flash_dkv_plain(q, k, v, do, lse, di, t_real)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("eav_flash_dkv", q, (q, k, v, do, lse, di, dk, dv), bh, t_pad, t_real)
-    _count(flash_dkv)
+    _launch(flash_dkv, q, (q, k, v, do, lse, di, dk, dv), bh, t_pad, t_real)
     return dk, dv
 
 
@@ -255,8 +294,7 @@ def flash_dq(q, k, v, do, lse, di, t_real: int):
     if _on_cpu(q, k, v, do, lse, di):
         return flash_dq_plain(q, k, v, do, lse, di, t_real)
     dq = torch.empty_like(q)
-    _launch("eav_flash_dq", q, (q, k, v, do, lse, di, dq), bh, t_pad, t_real)
-    _count(flash_dq)
+    _launch(flash_dq, q, (q, k, v, do, lse, di, dq), bh, t_pad, t_real)
     return dq
 
 
@@ -291,8 +329,7 @@ def flash_onepass(q, k, v, t_real: int):
             f"{SMEM_LIMIT}; the float32 kernel takes at most {onepass_max_len(d)} keys at D {d}")
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
-    _launch("eav_flash_onepass", q, (q, k, v, o, lse), bh, t_pad, t_real)
-    _count(flash_onepass)
+    _launch(flash_onepass, q, (q, k, v, o, lse), bh, t_pad, t_real)
     return o, lse
 
 

@@ -37,16 +37,29 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _weights_on(in_size: int, out_size: int, device: torch.device,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``resize_weights`` copied to ``device`` once and kept: a forward
+    captured into a CUDA graph (``train/loop.Trainer.train_step``) may not
+    copy from pageable host memory, and its replays read these tensors, so
+    none is ever evicted (one a pair of sizes, device and type). The copy is
+    waited for before the tensor is shared: another thread may read it on
+    another stream."""
+    w = torch.as_tensor(resize_weights(in_size, out_size), device=device, dtype=dtype)
+    if w.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return w
+
+
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """(N, H, W, C) float -> (N, height, width, C), antialiased when
     downsampling; an axis whose size already matches is left as it is."""
     _, h, w, _ = x.shape
     if h != height:
-        wh = torch.as_tensor(resize_weights(h, height), device=x.device, dtype=x.dtype)
-        x = torch.einsum("nhwc,hi->niwc", x, wh)
+        x = torch.einsum("nhwc,hi->niwc", x, _weights_on(h, height, x.device, x.dtype))
     if w != width:
-        ww = torch.as_tensor(resize_weights(w, width), device=x.device, dtype=x.dtype)
-        x = torch.einsum("nhwc,wj->nhjc", x, ww)
+        x = torch.einsum("nhwc,wj->nhjc", x, _weights_on(w, width, x.device, x.dtype))
     return x
 
 

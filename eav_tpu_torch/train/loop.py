@@ -60,15 +60,41 @@ PyTorch runs eagerly, so the JAX trainer's XLA and TPU devices (phase
 programs compiled with ``lax.scan``, chunked epochs, device placement
 helpers) have no counterpart. Evaluation slices the last batch instead of
 padding it; evaluation is pure, so the logits are the same.
+
+On a CUDA device ``train_step`` runs the whole step (forward, loss,
+backward, AdamW, max-norm) as one replayed CUDA graph, so the card no
+longer waits for the host to launch it kernel by kernel. Each distinct
+step (``Trainer._graph_key``: the batch's shapes, the mode, the trainable
+set, the optimizer and its settings, the dropout generators) runs eagerly
+the first time, on the side stream the capture uses (torch's recipe for
+capturing a whole network: AdamW's state and the stream's cuBLAS
+workspace are made outside any graph); the second call captures it and
+replays it once, later calls replay it. No step is taken twice or left
+out, so a fit's trajectory is the eager one's. The step stays eager off
+the card, in a data-parallel fit (its all-reduce), while a forward or
+backward hook is registered or anomaly mode is on (their Python would run
+at capture only), with an optimizer torch cannot capture (one without a
+``capturable`` setting), and when a Dropout draws from a generator off
+the card, which no graph can register. On the card the trainer makes its
+AdamW ``capturable`` at its first step (``make_capturable``), whether that
+step is then captured or kept eager (a hook, anomaly mode, a data-parallel
+fit): a fit's numbers do not depend on how its steps run, and a
+data-parallel fit at world 1 equals the single-card fit bit for bit. What
+steps an AdamW outside ``Trainer`` (the stacked trainer, the scripts)
+keeps the plain one, which launches fewer kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
 import json
 import os
+import threading
+import weakref
 from dataclasses import asdict
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,10 +105,15 @@ from torch import nn
 from eav_tpu_torch.core.config import FinetuneConfig
 from eav_tpu_torch.core.device import deterministic_algorithms, resolve_device
 from eav_tpu_torch.core.optim import HEAD_REGEX, make_optimizer, maxnorm_project, set_trainable
-from eav_tpu_torch.models.dropout import set_generator, set_rows
+from eav_tpu_torch.models.dropout import Dropout, set_generator, set_rows
 from eav_tpu_torch.models.norm import set_group
+from eav_tpu_torch.ops.attention import add_launches, tally_launches
 from eav_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_index, axis_size, share
 from eav_tpu_torch.utils.profiling import span
+
+GRAPH_CAPTURE = "trainer.graph_capture"  # the span of a step's capture
+GRAPH_REPLAY = "trainer.graph_replay"  # the span of a graph's replay
+_SIDE = threading.local()  # each thread's side stream, by device (Trainer._side_stream)
 
 
 class TrainResult(NamedTuple):
@@ -179,10 +210,84 @@ def kernel_penalty(model: nn.Module, l1: float, l2: float) -> torch.Tensor:
     return total
 
 
+def _hooked(model: nn.Module) -> bool:
+    """Whether a forward or backward hook (or pre-hook) is registered on any
+    module of ``model`` or for every module: a captured step would run its
+    Python once, at capture, and never at a replay."""
+    m = torch.nn.modules.module
+    if (m._global_forward_hooks or m._global_forward_pre_hooks or m._global_backward_hooks
+            or m._global_backward_pre_hooks):
+        return True
+    return any(mod._forward_hooks or mod._forward_pre_hooks or mod._backward_hooks
+               or mod._backward_pre_hooks for mod in model.modules())
+
+
+def _graph_generators(model: nn.Module) -> Optional[Tuple[torch.Generator, ...]]:
+    """The generators the model's Dropouts draw this step's masks from,
+    each to be registered with a graph so that its replays advance them as
+    eager steps do (the default CUDA generator, a Dropout's None, is
+    registered by the capture itself); None where one cannot be, a
+    generator off the card."""
+    gens: list = []
+    for mod in model.modules():
+        if isinstance(mod, Dropout) and mod.needs_mask() and mod.generator is not None:
+            if mod.generator.device.type != "cuda":
+                return None
+            if all(mod.generator is not g for g in gens):
+                gens.append(mod.generator)
+    return tuple(gens)
+
+
+def make_capturable(opt: torch.optim.Optimizer) -> None:
+    """Set ``capturable`` on each param group of ``opt`` (torch's AdamW:
+    step counts on the parameters' device and no host synchronisation in
+    its step, so a CUDA graph can capture it), moving the step counts an
+    earlier step left on the host beside their parameters. Its update is
+    the same algorithm, its bias correction now computed on the device in
+    float32. An optimizer without the setting is left as it is."""
+    if "capturable" not in opt.defaults:
+        return
+    for group in opt.param_groups:
+        if group["capturable"]:
+            continue
+        group["capturable"] = True
+        for p in group["params"]:
+            step = opt.state.get(p, {}).get("step")
+            if torch.is_tensor(step) and step.device != p.device:
+                opt.state[p]["step"] = step.to(p.device)
+
+
+def _drop_graphs_of(trainer_ref: "weakref.ref[Trainer]", _opt) -> None:
+    """An optimizer's ``load_state_dict`` hook: new state outdates the
+    trainer's graphs. The trainer is held weakly, so that the optimizer
+    keeps no trainer, and no graph's memory, alive."""
+    trainer = trainer_ref()
+    if trainer is not None:
+        trainer.drop_graphs()
+
+
+class StepGraph:
+    """One training step, known from its first (eager) run and captured as
+    a CUDA graph at its second: its optimizer, the static input buffers
+    each replay's batch is copied into, the graph (None until captured),
+    its static outputs (loss, correct count) and the flash kernel launches
+    it makes (``ops/attention.tally_launches``)."""
+
+    def __init__(self, x: torch.Tensor, y: torch.Tensor, opt: torch.optim.Optimizer):
+        self.x, self.y = x.clone(), y.clone()
+        self.opt = opt
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Tuple[torch.Tensor, ...] = ()
+        self.launches: Dict = {}
+
+
 class Trainer:
     """Two-phase fine-tune runner for a model with the (B, ...) ->
     (B, num_classes) contract and a ``reset_parameters(generator)`` method;
-    its optional ``maxnorm_rules`` are projected after every step."""
+    its optional ``maxnorm_rules`` are projected after every step.
+
+    ``step_counts``: the training steps this trainer ran eagerly, captured
+    (and replayed once) and replayed (the module docstring)."""
 
     def __init__(self, model: nn.Module, cfg: FinetuneConfig,
                  head_regex: str = HEAD_REGEX, device="cuda", deterministic: bool = False):
@@ -193,6 +298,10 @@ class Trainer:
         self.deterministic = deterministic
         self.maxnorm_rules = tuple(getattr(model, "maxnorm_rules", ()))
         self._shards = DataShards()  # a fit's (fit(mesh=)); one shard outside a fit
+        self.step_counts = {"eager": 0, "captured": 0, "replayed": 0}
+        self._graphs: Dict[tuple, StepGraph] = {}  # by _graph_key
+        self._hooks: Dict[int, object] = {}  # id(optimizer) -> its load_state_dict hook
+        self._pool = None  # the memory pool the trainer's graphs share, from the first capture
 
     def _frozen_cache_ok(self) -> bool:
         """A frozen phase may run on cached backbone features only when that
@@ -250,34 +359,168 @@ class Trainer:
                    mode: str = "full", batch_rows: Optional[int] = None):
         """One optimizer step on one batch, in the mode (train or eval) the
         model is in, then the max-norm projection -> (loss, correct count),
-        both still on the device. In a data-parallel fit ``x`` is this
-        rank's share of a batch of ``batch_rows`` rows: the loss is the
-        share's part of the batch's mean, and the gradients are summed over
-        the data axis before the step. Its phases are the port's spans
-        ``trainer.forward``, ``trainer.backward``, ``trainer.optimizer``
-        (timed on the card too) and ``trainer.maxnorm``, inside
-        ``trainer.train_step``."""
-        cfg = self.cfg
+        both still on the device and the caller's to keep. In a
+        data-parallel fit ``x`` is this rank's share of a batch of
+        ``batch_rows`` rows: the loss is the share's part of the batch's
+        mean, and the gradients are summed over the data axis before the
+        step. On the card a step runs eagerly, or is captured as a CUDA
+        graph, or replays one (the module docstring; ``step_counts``). Its
+        spans: ``trainer.train_step`` holding, in an eager step or a
+        capture, ``trainer.forward``, ``trainer.backward``,
+        ``trainer.optimizer`` (timed on the card when not capturing) and
+        ``trainer.maxnorm``; ``trainer.graph_capture`` around a capture and
+        ``trainer.graph_replay`` around a replay."""
         with span("trainer.train_step"):
-            with span("trainer.forward"):
-                logits = self._apply(x, mode)
-                loss = cross_entropy(logits, y, cfg.compat_softmax)
-                n, total = len(y), batch_rows or len(y)
-                if total != n:  # a share of the batch: sum over ranks = the batch's mean
-                    loss = loss * (n / total) if n else logits.sum() * 0.0
-                if (cfg.l1_reg or cfg.l2_reg) and self._shards.index == 0:
-                    # Keras l1_l2 (the audio notebook's SCNN), once over the data axis
-                    loss = loss + kernel_penalty(self.model, cfg.l1_reg, cfg.l2_reg)
-            with span("trainer.backward"):
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                self._shards.sum_grads_(self.model)
-            with span("trainer.optimizer", device=True):
-                opt.step()
-            if self.maxnorm_rules:
-                with span("trainer.maxnorm"):
-                    maxnorm_project(self.model, self.maxnorm_rules)
-            return loss.detach(), (logits.detach().argmax(-1) == y).sum()
+            if self.device.type == "cuda":
+                make_capturable(opt)
+            key = self._graph_key(opt, x, y, mode, batch_rows)
+            if key is None:
+                self.step_counts["eager"] += 1
+                return self._step(opt, x, y, mode, batch_rows)
+            graph = self._graphs.get(key)
+            if graph is None:
+                self.step_counts["eager"] += 1
+                out = self._warm_up(opt, x, y, mode, batch_rows)
+                self._graphs[key] = StepGraph(x, y, opt)
+                if id(opt) not in self._hooks:  # new optimizer state outdates the graphs
+                    self._hooks[id(opt)] = opt.register_load_state_dict_post_hook(
+                        functools.partial(_drop_graphs_of, weakref.ref(self)))
+                return out
+            if graph.graph is None:
+                self.step_counts["captured"] += 1
+                self._capture(graph, mode, batch_rows)
+            else:
+                self.step_counts["replayed"] += 1
+            return self._replay(graph, x, y)
+
+    def _step(self, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor, mode: str,
+              batch_rows: Optional[int]):
+        """The step's body, run eagerly or under capture -> (loss, correct)."""
+        cfg = self.cfg
+        with span("trainer.forward"):
+            logits = self._apply(x, mode)
+            loss = cross_entropy(logits, y, cfg.compat_softmax)
+            n, total = len(y), batch_rows or len(y)
+            if total != n:  # a share of the batch: sum over ranks = the batch's mean
+                loss = loss * (n / total) if n else logits.sum() * 0.0
+            if (cfg.l1_reg or cfg.l2_reg) and self._shards.index == 0:
+                # Keras l1_l2 (the audio notebook's SCNN), once over the data axis
+                loss = loss + kernel_penalty(self.model, cfg.l1_reg, cfg.l2_reg)
+        with span("trainer.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            self._shards.sum_grads_(self.model)
+        with span("trainer.optimizer", device=True):
+            opt.step()
+        if self.maxnorm_rules:
+            with span("trainer.maxnorm"):
+                maxnorm_project(self.model, self.maxnorm_rules)
+        return loss.detach(), (logits.detach().argmax(-1) == y).sum()
+
+    def _graph_key(self, opt: torch.optim.Optimizer, x: torch.Tensor, y: torch.Tensor,
+                   mode: str, batch_rows: Optional[int]) -> Optional[tuple]:
+        """What a captured step depends on besides the values of its inputs
+        and state, or None where the step must run eagerly (the module
+        docstring). Anything the graph bakes in is here: the batch's shapes
+        and types, the mode and train/eval, the rows' share, the optimizer
+        and each of its group's settings (the lr among them), the
+        trainable set, the generators, the deterministic mode, the loss's
+        flags. The optimizer and the generators are held by identity, so
+        none is taken for another while its steps are known."""
+        if (self.device.type != "cuda" or self._shards.group is not None
+                or torch.is_anomaly_enabled()
+                or not all(g.get("capturable") for g in opt.param_groups)
+                or _hooked(self.model)):
+            return None
+        generators = _graph_generators(self.model)
+        if generators is None:
+            return None
+        cfg = self.cfg
+        return (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype, mode, self.model.training,
+                batch_rows or len(y), opt,
+                tuple(tuple((k, v) for k, v in g.items() if k != "params")
+                      for g in opt.param_groups),
+                tuple(p.requires_grad for p in self.model.parameters()),
+                generators, torch.are_deterministic_algorithms_enabled(),
+                cfg.compat_softmax, cfg.l1_reg, cfg.l2_reg)
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        """The stream of the warm-ups and captures, after it has waited for
+        the current stream's work: one a thread and device, so that the
+        trainers a thread makes one after another share its cuBLAS
+        workspaces and cached blocks, and no two threads capture on one
+        stream."""
+        current = torch.cuda.current_stream(self.device)
+        streams = vars(_SIDE)
+        if current.device not in streams:
+            streams[current.device] = torch.cuda.Stream(current.device)
+        streams[current.device].wait_stream(current)
+        return streams[current.device]
+
+    def _warm_up(self, opt, x, y, mode, batch_rows):
+        """A step's first run: eager, on the side stream its capture will
+        use."""
+        side = self._side_stream()
+        with torch.cuda.stream(side):
+            out = self._step(opt, x, y, mode, batch_rows)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return out
+
+    def _capture(self, graph: StepGraph, mode: str, batch_rows: Optional[int]) -> None:
+        """The step captured into ``graph`` on the side stream, from its
+        static inputs; nothing runs until the graph replays. ``thread_local``
+        capture, so that other threads (a farm's prefetch and workers) may
+        use the card meanwhile. The trainer's graphs share one memory pool,
+        which holds one step's memory however many steps are captured: it
+        is safe because they replay one at a time on one stream, and what a
+        capture leaves allocated in the pool is read only inside that
+        graph's own replay or right after it (the gradients, which each
+        step makes anew; the static outputs, copied out at once). Before the
+        pool's first capture (once a fit) the card's cached blocks are
+        freed: a capture cannot free them when it needs memory, and they
+        hold the pools of graphs dropped before, which nothing else frees
+        while the cache can serve the eager steps (a sweep's earlier fits)."""
+        opt, cuda_graph = graph.opt, torch.cuda.CUDAGraph()
+        side = self._side_stream()
+        if self._pool is None:
+            torch.cuda.empty_cache()
+        with span(GRAPH_CAPTURE), torch.cuda.stream(side), tally_launches(side) as tally:
+            for gen in _graph_generators(self.model):
+                cuda_graph.register_generator_state(gen)
+            cuda_graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                outputs = self._step(opt, graph.x, graph.y, mode, batch_rows)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):  # the capture's own error, if any
+                    cuda_graph.capture_end()
+                raise
+            cuda_graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph.graph, graph.outputs, graph.launches = cuda_graph, outputs, tally
+        self._pool = cuda_graph.pool()
+
+    def _replay(self, graph: StepGraph, x: torch.Tensor, y: torch.Tensor):
+        """The graph run on ``x`` and ``y`` -> fresh copies of its outputs."""
+        graph.x.copy_(x)
+        graph.y.copy_(y)
+        with span(GRAPH_REPLAY):
+            graph.graph.replay()
+        add_launches(graph.launches)
+        return tuple(t.clone() for t in graph.outputs)
+
+    def drop_graphs(self) -> None:
+        """Forget every captured step; each graph's memory goes with it and
+        with the gradients it left on the parameters. Called when the
+        optimizer's state is replaced (its ``load_state_dict``) and at the
+        end of every fit; the next call of a step runs it eagerly again."""
+        for graph in self._graphs.values():
+            if graph.graph is not None:
+                graph.opt.zero_grad(set_to_none=True)
+        for handle in self._hooks.values():
+            handle.remove()
+        self._graphs.clear()
+        self._hooks.clear()
+        self._pool = None
 
     def _train_acc(self, correct: torch.Tensor, n: int, bs: int) -> torch.Tensor:
         """An epoch's train accuracy from its per-batch correct counts (the
@@ -339,6 +582,7 @@ class Trainer:
             with deterministic_algorithms(self.deterministic):
                 return self._fit(data, seed, init_params, checkpoint_dir)
         finally:
+            self.drop_graphs()
             self._shards = DataShards()
             set_group(self.model, None)
             set_rows(self.model, None)

@@ -106,6 +106,27 @@ def test_plain_versions_do_not_count_launches(rng):
     assert [fn.launches for fn in A.KERNELS] == [0, 0, 0, 0]
 
 
+def test_a_capture_tallies_its_launches_until_each_replay():
+    """Launches on a stream under ``tally_launches`` (a graph's capture) go
+    to the tally, not to ``.launches``; launches on other streams count as
+    before; each ``add_launches`` (a replay) counts the tally once more."""
+    from types import SimpleNamespace
+
+    A.reset_launches()
+    capturing, other = SimpleNamespace(cuda_stream=11), 12
+    with A.tally_launches(capturing) as tally:
+        for fn in (A.flash_fwd, A.flash_fwd, A.flash_dkv, A.flash_dq):
+            A._count(fn, capturing.cuda_stream)
+        A._count(A.flash_fwd, other)
+    assert tally == {A.flash_fwd: 2, A.flash_dkv: 1, A.flash_dq: 1}
+    assert [fn.launches for fn in A.KERNELS] == [1, 0, 0, 0]
+    A._count(A.flash_fwd, capturing.cuda_stream)  # the capture has ended
+    for _ in range(3):
+        A.add_launches(tally)
+    assert [fn.launches for fn in A.KERNELS] == [2 + 3 * 2, 3, 3, 0]
+    A.reset_launches()
+
+
 def test_wrappers_refuse_other_devices_and_bad_operands():
     meta = torch.empty(2, 64, 16, device="meta")
     with pytest.raises(ValueError, match="CPU or one CUDA device"):

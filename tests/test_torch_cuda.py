@@ -2,8 +2,9 @@
 plain versions on the card, a fit that repeats bit for bit on the card under
 the trainer's deterministic mode, and the fifth slice on the card: the
 scnn180 chain against float64 on the CPU, ResNetAttn's forward against the
-CPU, an HF checkpoint round trip, and the kernels under ``torch.func.vmap``
-(one launch for a stack).
+CPU, an HF checkpoint round trip, the kernels under ``torch.func.vmap``
+(one launch for a stack), and the trainer's steps replayed as CUDA graphs
+against the same steps run eagerly.
 
 These need a GPU with the CUDA toolkit (the kernels are built with nvcc at
 first use), so they carry the ``cuda`` marker and skip elsewhere. Run them on
@@ -282,3 +283,206 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path, monkeypatch):
     with torch.no_grad():
         torch.testing.assert_close(model.to(cuda).eval()(x, mode="features"),
                                    src(x, mode="features"), atol=1e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Trainer.train_step as a replayed CUDA graph, against the same steps run
+# eagerly: a registered forward hook keeps a trainer's steps eager.
+# ---------------------------------------------------------------------------
+
+
+def _graph_trainer(cuda, eager, dropout=0.0, deterministic=False):
+    """A tiny AST with flash attention in a Trainer, its weights and dropout
+    generator seeded; with ``eager``, a no-op forward hook keeps its steps
+    eager."""
+    from eav_tpu_torch.core.config import FinetuneConfig, PhaseConfig
+    from eav_tpu_torch.models.ast import ast_tiny
+    from eav_tpu_torch.models.dropout import set_generator
+    from eav_tpu_torch.train.loop import Trainer
+
+    cfg = FinetuneConfig(model="ast", batch_size=8, weight_decay=0.01,
+                         phases=(PhaseConfig(1, 1e-3, True), PhaseConfig(3, 1e-4, False)))
+    model = ast_tiny(dropout=dropout, attn_impl="flash")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    trainer = Trainer(model, cfg, device=cuda, deterministic=deterministic)
+    set_generator(trainer.model, torch.Generator(device=cuda).manual_seed(7))
+    if eager:
+        trainer.model.register_forward_hook(lambda *args: None)
+    return trainer
+
+
+def _graph_data(cuda, n=20):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(n, 128, 128, generator=gen, device=cuda)
+    return x, torch.randint(0, 5, (n,), generator=gen, device=cuda)
+
+
+def _run_schedule(cuda, eager, schedule, dropout=0.0, deterministic=False):
+    """``schedule``: (rows, lr, freeze) a step, through ``train_step`` ->
+    (losses as returned, parameters after, the trainer, K1-K3 launches)."""
+    from eav_tpu_torch.core.device import deterministic_algorithms
+    from eav_tpu_torch.core.optim import make_optimizer, set_trainable
+
+    trainer = _graph_trainer(cuda, eager, dropout)
+    x, y = _graph_data(cuda)
+    opt = make_optimizer(trainer.model, trainer.cfg)
+    assert not any(g["capturable"] for g in opt.param_groups)
+    trainer.model.train()
+    A.reset_launches()
+    losses = []
+    with deterministic_algorithms(deterministic):
+        for rows, lr, freeze in schedule:
+            set_trainable(trainer.model, freeze)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            losses.append(trainer.train_step(opt, x[rows], y[rows])[0])
+        torch.cuda.synchronize()
+    # the trainer's first step made it capturable, an eager trainer's too
+    assert all(g["capturable"] for g in opt.param_groups)
+    launches = [fn.launches for fn in A.KERNELS[:3]]
+    return losses, {n: p.detach().clone() for n, p in trainer.model.named_parameters()}, \
+        trainer, launches
+
+
+def _assert_same(got, want, bitwise):
+    if bitwise:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **_tol(torch.float32, 0))
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_graphed_steps_match_eager_steps(cuda, deterministic):
+    """Six steps of one shape: the first eager on the side stream, the
+    second captured and replayed, four replayed; losses and parameters
+    equal the eager trainer's (bit for bit in the deterministic mode). The
+    losses returned are tensors of their own, and the K1-K3 counters count
+    every replay's launches."""
+    schedule = [(slice(2 * i, 2 * i + 8), 1e-3, False) for i in range(6)]
+    want, want_p, _, want_n = _run_schedule(cuda, True, schedule, deterministic=deterministic)
+    got, got_p, trainer, got_n = _run_schedule(cuda, False, schedule,
+                                               deterministic=deterministic)
+    assert trainer.step_counts == {"eager": 1, "captured": 1, "replayed": 4}
+    assert len({loss.data_ptr() for loss in got}) == len(got)
+    _assert_same(torch.stack(got), torch.stack(want), deterministic)
+    for name in want_p:
+        _assert_same(got_p[name], want_p[name], deterministic)
+    assert got_n == want_n and got_n[0] == 6 * 2  # a launch of K1 per layer a step
+
+
+def test_lr_and_trainable_changes_recapture(cuda):
+    """A new lr and a new trainable set are new steps: each runs eagerly,
+    then is captured; going back to an earlier lr and set replays its graph
+    (the three share one memory pool); the parameters follow the eager
+    trainer's."""
+    rows = [slice(0, 8), slice(4, 12), slice(8, 16)]
+    schedule = ([(r, 1e-3, False) for r in rows] + [(r, 3e-4, False) for r in rows]
+                + [(r, 3e-4, True) for r in rows] + [(rows[0], 1e-3, False), (rows[1], 3e-4, True)])
+    want, want_p, _, _ = _run_schedule(cuda, True, schedule, deterministic=True)
+    got, got_p, trainer, _ = _run_schedule(cuda, False, schedule, deterministic=True)
+    assert trainer.step_counts == {"eager": 3, "captured": 3, "replayed": 5}
+    assert len(trainer._graphs) == 3
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    for name in want_p:
+        assert torch.equal(got_p[name], want_p[name]), name
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.3])
+def test_graphed_fit_matches_eager_fit(cuda, dropout):
+    """A fit of 20 rows at batch 8 (the last batch 4, a graph of its own),
+    one frozen and three unfrozen epochs, dropout from the fit's generator:
+    history and test logits equal the eager fit's, bit for bit in the
+    deterministic mode, with the graphs of 8 and of 4 sharing one memory
+    pool and replaying in turns; the fit drops its graphs at the end."""
+    x, y = _graph_data(cuda, 26)
+    data = (x[:20].cpu(), y[:20].cpu(), x[20:].cpu(), y[20:].cpu())
+    results = []
+    for eager in (True, False):
+        trainer = _graph_trainer(cuda, eager, dropout, deterministic=True)
+        results.append((trainer.fit(data, seed=3), trainer))
+    (want, _), (got, trainer) = results
+    for k in ("loss", "train_acc", "test_acc"):
+        np.testing.assert_array_equal(got.history[k], want.history[k], err_msg=k)
+    np.testing.assert_array_equal(got.outputs_test, want.outputs_test)
+    # steps of 8, 8, 4: the frozen epoch runs the 8 eagerly, captures it,
+    # runs the 4 eagerly; the first unfrozen epoch the same (a new lr and
+    # trainable set); the second replays the 8 twice and captures the 4;
+    # the third replays all three
+    assert trainer.step_counts == {"eager": 4, "captured": 3, "replayed": 5}
+    assert not trainer._graphs
+
+
+def test_graphed_vit_fit_resizes_uint8_frames(cuda):
+    """ViT on uint8 48 x 48 frames, resized to 64 on the card inside the
+    forward (the vision preset's path): its weights are made on the card in
+    the eager first step, so the capture copies nothing from the host; the
+    fit equals the eager fit bit for bit in the deterministic mode."""
+    from eav_tpu_torch.core.config import FinetuneConfig, PhaseConfig
+    from eav_tpu_torch.models.vit import vit_tiny
+    from eav_tpu_torch.train.loop import Trainer
+
+    gen = torch.Generator().manual_seed(2)
+    frames = torch.randint(0, 256, (26, 48, 48, 3), generator=gen, dtype=torch.uint8)
+    labels = torch.randint(0, 5, (26,), generator=gen)
+    data = (frames[:20], labels[:20], frames[20:], labels[20:])
+    cfg = FinetuneConfig(model="vit", batch_size=8, weight_decay=0.01,
+                         phases=(PhaseConfig(3, 1e-3, False),))
+    results = []
+    for eager in (True, False):
+        model = vit_tiny(preprocess_uint8=True)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        trainer = Trainer(model, cfg, device=cuda, deterministic=True)
+        if eager:
+            trainer.model.register_forward_hook(lambda *args: None)
+        results.append((trainer.fit(data, seed=3), trainer.step_counts))
+    (want, _), (got, counts) = results
+    assert counts == {"eager": 2, "captured": 2, "replayed": 5}
+    for k in ("loss", "train_acc", "test_acc"):
+        np.testing.assert_array_equal(got.history[k], want.history[k], err_msg=k)
+    np.testing.assert_array_equal(got.outputs_test, want.outputs_test)
+
+
+def test_hooks_and_debug_nans_keep_steps_eager(cuda):
+    """A forward hook on a module, and ``debug_nans`` (a global forward hook
+    and anomaly mode), keep every step eager."""
+    from eav_tpu_torch.core.optim import make_optimizer
+    from eav_tpu_torch.utils.profiling import debug_nans
+
+    x, y = _graph_data(cuda)
+    for hooked in (True, False):
+        trainer = _graph_trainer(cuda, eager=hooked)
+        opt = make_optimizer(trainer.model, trainer.cfg)
+        with debug_nans(not hooked):
+            for _ in range(3):
+                trainer.train_step(opt, x[:8], y[:8])
+        assert trainer.step_counts == {"eager": 3, "captured": 0, "replayed": 0}
+        assert not trainer._graphs
+
+
+def test_fits_on_two_threads(cuda):
+    """The farm's pattern: two trainers fit on one card from two threads at
+    once, capturing and replaying; each result equals that trainer's fit
+    alone."""
+    import threading
+
+    x, y = _graph_data(cuda, 26)
+    data = (x[:20].cpu(), y[:20].cpu(), x[20:].cpu(), y[20:].cpu())
+    alone = [_graph_trainer(cuda, False).fit(data, seed=s) for s in (3, 4)]
+    trainers = [_graph_trainer(cuda, False) for _ in range(2)]
+    results, errors = [None, None], []
+
+    def fit(i):
+        try:
+            results[i] = trainers[i].fit(data, seed=3 + i)
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            errors.append(e)
+
+    threads = [threading.Thread(target=fit, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for got, want, trainer in zip(results, alone, trainers):
+        assert trainer.step_counts == {"eager": 4, "captured": 3, "replayed": 5}
+        np.testing.assert_allclose(got.outputs_test, want.outputs_test, rtol=2e-4, atol=2e-4)

@@ -3,6 +3,7 @@ against ``adam_update`` with frozen leaves, the two-phase ``fit`` trajectory
 against ``JitTrainer`` on the same weights and data (AST, and ViT on uint8
 frames), and the frozen-feature cache against the full frozen phase."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -18,11 +19,13 @@ from eav_tpu.models.ast import ast_tiny as jax_ast_tiny
 from eav_tpu.models.vit import vit_tiny as jax_vit_tiny
 from eav_tpu.train.loop import JitTrainer
 from eav_tpu_torch.core.config import FinetuneConfig, PhaseConfig
+from eav_tpu_torch.core.device import deterministic_algorithms
 from eav_tpu_torch.core.optim import make_optimizer, set_trainable
 from eav_tpu_torch.models.ast import ast_tiny
+from eav_tpu_torch.models.dropout import set_generator
 from eav_tpu_torch.models.bridge import ast_params_from_jax, vit_params_from_jax
 from eav_tpu_torch.models.vit import vit_tiny
-from eav_tpu_torch.train.loop import Trainer, cross_entropy
+from eav_tpu_torch.train.loop import StepGraph, Trainer, cross_entropy
 
 
 class _TwoLeaves(torch.nn.Module):
@@ -106,8 +109,10 @@ def test_two_phase_fit_matches_jit_trainer(rng):
     variables = mj.init(jax.random.PRNGKey(1), jnp.asarray(data[0][:1]), train=False)
     params = jax.tree.map(np.asarray, variables["params"])
     want = JitTrainer(mj, jcfg).fit(data, init_params=jax.tree.map(jnp.asarray, params))
-    got = Trainer(ast_tiny(layers=1), cfg, device="cpu").fit(
-        data, init_params=ast_params_from_jax(params))
+    trainer = Trainer(ast_tiny(layers=1), cfg, device="cpu")
+    got = trainer.fit(data, init_params=ast_params_from_jax(params))
+    # a CPU fit never captures a graph: 4 epochs of 3 steps, all eager
+    assert trainer.step_counts == {"eager": 12, "captured": 0, "replayed": 0}
     for k in ("loss", "train_acc", "test_acc"):
         assert got.history[k].shape == (4,)
         np.testing.assert_allclose(got.history[k], want.history[k], rtol=1e-4, atol=1e-4, err_msg=k)
@@ -416,3 +421,276 @@ def test_cache_gate_refuses_maxnorm_rules():
     model = ast_tiny()
     model.maxnorm_rules = ((r"^classifier\.weight$", 1.0, (1,)),)
     assert not Trainer(model, cfg, device="cpu")._frozen_cache_ok()
+
+
+# ---------------------------------------------------------------------------
+# When a step may run as a CUDA graph: decided on the CPU with the trainer's
+# device named 'cuda' (its tensors stay on the CPU) and the graph's own
+# stream work replaced by the eager body.
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_fits_run_every_step_eagerly(rng):
+    """Two phases, shuffled, a partial last batch, dropout: every step of a
+    CPU fit is eager, no step is kept, and the fit repeats under its seed."""
+    data = _data(rng, 10, 3)
+    cfg = FinetuneConfig(phases=(PhaseConfig(1, 5e-3, True), PhaseConfig(2, 5e-4, False)),
+                         **dict(_CFG, shuffle=True))
+    trainer = Trainer(ast_tiny(layers=1, dropout=0.1), cfg, device="cpu")
+    a = trainer.fit(data, seed=5)
+    assert trainer.step_counts == {"eager": 9, "captured": 0, "replayed": 0}
+    assert not trainer._graphs
+    b = trainer.fit(data, seed=5)
+    np.testing.assert_array_equal(a.outputs_test, b.outputs_test)
+    np.testing.assert_array_equal(a.history["loss"], b.history["loss"])
+
+
+def _as_if_on_cuda(model, **adamw):
+    """A trainer that takes itself to be on the card, with a capturable
+    AdamW, whose eager step, warm-up, capture and replay each only log
+    their name (a capturable AdamW cannot step on the CPU)."""
+    cfg = FinetuneConfig(phases=(PhaseConfig(1, 1e-3, False),), **_CFG)
+    trainer = Trainer(model, cfg, device="cpu")
+    trainer.device = torch.device("cuda")
+    opt = torch.optim.AdamW(trainer.model.parameters(), lr=1e-3, capturable=True, **adamw)
+    calls = []
+
+    def logged(name, then=None):
+        def run(graph=None, *args):
+            calls.append(name)
+            if then is not None:
+                then(graph)
+            return torch.zeros(()), torch.zeros((), dtype=torch.long)
+        return run
+
+    trainer._step = logged("eager")
+    trainer._warm_up = logged("warm_up")
+    trainer._capture = logged("capture", lambda graph: setattr(graph, "graph", "captured"))
+    trainer._replay = logged("replay")
+    return trainer, opt, calls
+
+
+def _batch(rng, n=4):
+    return (torch.from_numpy(rng.normal(size=(n, 128, 128)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 5, size=n)))
+
+
+def test_a_step_runs_eagerly_then_is_captured_then_replays(rng):
+    """The first call with a key is an eager step (on the side stream), the
+    second captures and replays, later ones replay; a partial batch is a
+    step of its own; the graphs go with ``drop_graphs`` and with a new
+    optimizer state."""
+    trainer, opt, calls = _as_if_on_cuda(ast_tiny(layers=1, dropout=0.1))
+    trainer.model.train()
+    x, y = _batch(rng)
+    for _ in range(4):
+        trainer.train_step(opt, x, y)
+    trainer.train_step(opt, x[:3], y[:3])
+    # the capture's call replays the graph once, to do that call's work
+    assert calls == ["warm_up", "capture", "replay", "replay", "replay", "warm_up"]
+    assert trainer.step_counts == {"eager": 2, "captured": 1, "replayed": 2}
+    assert len(trainer._graphs) == 2
+    assert all(isinstance(g, StepGraph) and g.opt is opt for g in trainer._graphs.values())
+    trainer.drop_graphs()
+    assert not trainer._graphs
+    trainer.train_step(opt, x, y)
+    assert calls[-1] == "warm_up"
+
+
+def test_new_optimizer_state_drops_the_graphs_and_no_cycle_keeps_them(rng):
+    """``opt.load_state_dict`` (a resumed phase's) drops the trainer's
+    graphs; the optimizer's hook holds the trainer weakly, so a trainer that
+    kept graphs goes, with their memory, as soon as it is dropped, without
+    waiting for the garbage collector."""
+    import gc
+    import weakref
+
+    trainer, opt, calls = _as_if_on_cuda(ast_tiny(layers=1))
+    x, y = _batch(rng)
+    for _ in range(3):
+        trainer.train_step(opt, x, y)
+    assert len(trainer._graphs) == 1
+    opt.load_state_dict(opt.state_dict())
+    assert not trainer._graphs
+    trainer.train_step(opt, x, y)
+    assert calls[-1] == "warm_up" and len(trainer._graphs) == 1
+    gone = weakref.ref(trainer)
+    gc.disable()
+    try:
+        del trainer, calls
+        assert gone() is None
+    finally:
+        gc.enable()
+
+
+def _hook_module(trainer):
+    return trainer.model.register_forward_hook(lambda *args: None)
+
+
+def _pre_hook_module(trainer):
+    return trainer.model.encoder.register_forward_pre_hook(lambda *args: None)
+
+
+def _backward_hook_module(trainer):
+    return trainer.model.classifier.register_full_backward_hook(lambda *args: None)
+
+
+def _global_hook(trainer):
+    return torch.nn.modules.module.register_module_forward_hook(lambda *args: None)
+
+
+def _global_pre_hook(trainer):
+    return torch.nn.modules.module.register_module_forward_pre_hook(lambda *args: None)
+
+
+@pytest.mark.parametrize("register", [_hook_module, _pre_hook_module, _backward_hook_module,
+                                      _global_hook, _global_pre_hook])
+def test_a_registered_hook_keeps_steps_eager(rng, register):
+    """A hook's Python would run only at capture: with one registered, on the
+    model or for every module, steps run eagerly; once removed, the next
+    step is a warm-up."""
+    trainer, opt, calls = _as_if_on_cuda(ast_tiny(layers=1))
+    x, y = _batch(rng)
+    handle = register(trainer)
+    try:
+        for _ in range(3):
+            trainer.train_step(opt, x, y)
+    finally:
+        handle.remove()
+    assert calls == ["eager"] * 3 and trainer.step_counts["eager"] == 3 and not trainer._graphs
+    trainer.train_step(opt, x, y)
+    assert calls[-1] == "warm_up"
+
+
+def _anomaly_mode(trainer, opt):
+    return torch.autograd.detect_anomaly()
+
+
+def _data_parallel(trainer, opt):
+    trainer._shards.group = object()  # a data axis: the step all-reduces
+    return contextlib.nullcontext()
+
+
+def _cpu_generator(trainer, opt):
+    set_generator(trainer.model, torch.Generator().manual_seed(0))
+    return contextlib.nullcontext()
+
+
+def _not_capturable(trainer, opt):
+    for group in opt.param_groups:
+        group["capturable"] = False
+    return contextlib.nullcontext()
+
+
+def _off_the_card(trainer, opt):
+    trainer.device = torch.device("cpu")
+    return contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("condition", [_anomaly_mode, _data_parallel, _cpu_generator,
+                                       _not_capturable, _off_the_card])
+def test_the_eager_conditions(rng, condition):
+    """No key, so an eager step, off the card, in a data-parallel fit, in
+    anomaly mode, with an optimizer that is not capturable, and with a
+    Dropout drawing from a generator no graph can register (on the CPU);
+    without the condition the same step has a key."""
+    trainer, opt, _ = _as_if_on_cuda(ast_tiny(layers=1, dropout=0.1))
+    trainer.model.train()
+    x, y = _batch(rng)
+    assert trainer._graph_key(opt, x, y, "full", None) is not None
+    with condition(trainer, opt):
+        assert trainer._graph_key(opt, x, y, "full", None) is None
+
+
+def test_the_step_key_follows_what_the_graph_bakes_in(rng):
+    """The key holds still for the same step, and changes with the lr, the
+    weight decay, the trainable set, train/eval, the batch's shape, the
+    mode, the optimizer and the deterministic mode."""
+    trainer, opt, _ = _as_if_on_cuda(ast_tiny(layers=1))
+    x, y = _batch(rng)
+
+    def key(opt=opt, x=x, y=y, mode="full"):
+        return trainer._graph_key(opt, x, y, mode, None)
+
+    first = key()
+    assert key() == first
+    seen = {first}
+
+    def changed():
+        k = key()
+        assert k not in seen
+        seen.add(k)
+
+    opt.param_groups[0]["lr"] = 2e-3
+    changed()
+    opt.param_groups[0]["weight_decay"] = 0.5
+    changed()
+    set_trainable(trainer.model, True)
+    changed()
+    trainer.model.eval()
+    changed()
+    assert key(x=x[:3], y=y[:3]) not in seen
+    assert key(mode="features") not in seen
+    other = torch.optim.AdamW(trainer.model.parameters(), lr=2e-3, weight_decay=0.5,
+                              capturable=True)
+    assert key(opt=other) not in seen
+    with deterministic_algorithms(True):
+        assert key() not in seen
+
+
+def test_make_optimizer_builds_the_plain_adamw():
+    """Every caller (the trainer, the stacked trainer, the scripts) gets
+    the foreach AdamW, not capturable and not fused, on any device."""
+    cfg = FinetuneConfig(model="eegnet", batch_size=4, phases=(PhaseConfig(1, 1e-3, False),))
+    for device in ("cpu", "meta"):
+        opt = make_optimizer(EEGNet(**EEGNET_TINY).to(device), cfg)
+        assert [g["capturable"] for g in opt.param_groups] == [False]
+        assert not opt.defaults["fused"]
+
+
+def test_a_step_on_the_card_makes_the_trainers_adamw_capturable(rng):
+    """The trainer's first step on the card makes ``make_optimizer``'s AdamW
+    capturable, also a step a hook or a data-parallel fit keeps eager (how
+    a step runs changes no number); a step off the card leaves it plain."""
+    x, y = _batch(rng)
+
+    def data_parallel(trainer):
+        trainer._shards.group = object()
+
+    def off_the_card(trainer):
+        trainer.device = torch.device("cpu")
+
+    for setup, want, first in ((None, True, "warm_up"), (_hook_module, True, "eager"),
+                               (data_parallel, True, "eager"), (off_the_card, False, "eager")):
+        trainer, _, calls = _as_if_on_cuda(ast_tiny(layers=1))
+        opt = make_optimizer(trainer.model, trainer.cfg)
+        if setup is not None:
+            setup(trainer)
+        trainer.train_step(opt, x, y)
+        assert [g["capturable"] for g in opt.param_groups] == [want]
+        assert calls == [first]
+
+
+def test_make_capturable_moves_step_counts_beside_their_parameters():
+    """Step counts an earlier plain step left on the host move to their
+    parameter's device as float32; a parameter without state gets none; an
+    optimizer without the setting is left as it is."""
+    from eav_tpu_torch.train.loop import make_capturable
+
+    params = [torch.nn.Parameter(torch.zeros(3, device="meta")) for _ in range(2)]
+    opt = torch.optim.AdamW(params, lr=1e-3)
+    opt.state[params[0]]["step"] = torch.tensor(4.0)
+    make_capturable(opt)
+    assert [g["capturable"] for g in opt.param_groups] == [True]
+    step = opt.state[params[0]]["step"]
+    assert step.device.type == "meta" and step.dtype == torch.float32
+    assert params[1] not in opt.state
+    cpu = torch.nn.Parameter(torch.ones(3))
+    opt = torch.optim.AdamW([cpu], lr=1e-3)
+    cpu.grad = torch.ones(3)
+    opt.step()
+    make_capturable(opt)
+    assert opt.param_groups[0]["capturable"] and float(opt.state[cpu]["step"]) == 1.0
+    sgd = torch.optim.SGD(params, lr=0.1)
+    make_capturable(sgd)
+    assert "capturable" not in sgd.param_groups[0]
