@@ -18,9 +18,6 @@ from typing import Dict, Iterator, List, Tuple
 
 import torch
 
-from benchmark import yardstick
-from benchmark.reference import transformer as reference
-
 # the random streams drawn from one seed
 WEIGHTS, DATA, ORDER = 1, 2, 3
 
@@ -31,20 +28,21 @@ def sub_seed(seed: int, stream: int, index: int = 0) -> int:
     return (seed * 1_000_003 + stream * 10_007 + index) % 2**63
 
 
-def make_weights(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The configuration's parameters in float32 on ``device``, drawn in one
-    call from ``seed``: kernels N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.1),
-    biases, shifts and embeddings N(0, 0.02)."""
-    shapes = reference.param_shapes(model)
-    total = sum(math.prod(s) for s, _ in shapes.values())
+def make_weights(family, model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The parameters of a configuration's ``model`` block in float32 on
+    ``device``, drawn in one call from ``seed`` in the order of the
+    ``family``'s ``param_shapes``: kernels N(0, 1/fan_in), LayerNorm scales
+    1 + N(0, 0.1), biases, shifts and embeddings N(0, 0.02)."""
+    shapes = family.param_shapes(model)
+    total = sum(math.prod(s) for s, _, _ in shapes.values())
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, WEIGHTS))
     flat = torch.randn(total, generator=gen, device=device)
     out, at = {}, 0
-    for name, (shape, kind) in shapes.items():
+    for name, (shape, kind, fan_in) in shapes.items():
         z = flat[at: at + math.prod(shape)].view(shape)
         at += z.numel()
         if kind == "kernel":
-            out[name] = z / math.sqrt(math.prod(shape[1:]))
+            out[name] = z / math.sqrt(fan_in)
         elif kind == "scale":
             out[name] = 1.0 + 0.1 * z
         else:
@@ -54,14 +52,17 @@ def make_weights(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
 
 def make_subject(config: dict, seed: int, device) -> Tuple[torch.Tensor, ...]:
     """One subject's (train x, train y, test x, test y) on ``device``: float32
-    rows N(0, 1) or uint8 rows uniform over 0..255, labels uniform over the
-    classes, all drawn from ``seed``."""
+    rows N(0, 1), uint8 rows uniform over 0..255 or int64 token ids uniform
+    over 0..vocab-1, labels uniform over the classes, all drawn from
+    ``seed``."""
     sub = config["subject"]
     n = sub["train"] + sub["test"]
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, DATA))
     shape = (n, *sub["input"])
     if sub["dtype"] == "uint8":
         x = torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+    elif sub["dtype"] == "int64":
+        x = torch.randint(0, sub["vocab"], shape, generator=gen, device=device, dtype=torch.int64)
     elif sub["dtype"] == "float32":
         x = torch.randn(shape, generator=gen, device=device)
     else:
@@ -89,13 +90,6 @@ def one_of_each(n: int, size: int) -> int:
     return min(n, size + n % size)
 
 
-def reference_blocks(model: dict, n: int) -> List[Tuple[int, int]]:
-    """The reference's forward over ``n`` rows in blocks whose float32
-    (rows, heads, T, T) scores, three live at a time, fit in 4 GB."""
-    d = yardstick.model_dims(model)
-    return batches(n, max(1, int(4e9 // (3 * 4 * d["heads"] * d["tokens"] ** 2))))
-
-
 def build_trainer(config: dict, device):
     """The program under test: the port's model of the configuration's
     preset, at the configuration's widths, in a ``Trainer`` with the
@@ -112,18 +106,6 @@ def build_trainer(config: dict, device):
                              eval_batch_size=proto["eval_batch_size"],
                              weight_decay=proto["weight_decay"])
     return Trainer(build_model(preset, **widths), ft, device=device)
-
-
-def attention_calls(config: dict, sizes: List[int], kernels: Tuple[str, ...]) -> list:
-    """[(kernel, B·H, T, D, calls)]: the attention work of one pass of every
-    layer over batches of ``sizes``, for each of ``kernels`` ('fwd', 'dkv',
-    'dq'), counted from the model's shapes."""
-    d = yardstick.model_dims(config["model"])
-    counts: Dict[int, int] = {}
-    for b in sizes:
-        counts[b] = counts.get(b, 0) + 1
-    return [(k, b * d["heads"], d["tokens"], d["head_dim"], n * d["layers"])
-            for b, n in sorted(counts.items()) for k in kernels]
 
 
 def fence(device) -> None:
@@ -164,11 +146,12 @@ class Recorder:
         return [(n, u, a.elapsed_time(b)) for n, u, a, b in self._events]
 
 
-def flops_of(config: dict, train_samples: int, eval_samples: int) -> float:
+def flops_of(family, model: dict, train_samples: int, eval_samples: int) -> float:
     """Analytic FLOPs of ``train_samples`` trained and ``eval_samples``
-    passed forward (``yardstick``)."""
-    return (train_samples * yardstick.train_flops(config["model"])
-            + eval_samples * yardstick.forward_flops(config["model"]))
+    passed forward through a configuration's ``model`` (its ``family``'s
+    count)."""
+    return (train_samples * family.train_flops(model)
+            + eval_samples * family.forward_flops(model))
 
 
 def relative_gap(a: float, b: float, scale: float) -> float:

@@ -26,15 +26,10 @@ def readings(cell_name: str, seed: int, side: str, device, root: Path) -> dict:
     import torch
 
     from benchmark import common, faults
-    from benchmark.harness import Context, find, load_json, load_module
+    from benchmark.harness import Context, load_cell
 
-    spec = load_json(root / "BENCHMARK.json")
-    cell = find(spec["workloads"], cell_name, "workload")
-    config = load_json(root / find(spec["configs"], cell["config"], "configuration")["file"])
-    traffic = load_json(root / "benchmark" / "traffic" / f"{cell['traffic']}.json")
-    driver = load_module(root / "benchmark" / "drivers" / f"{cell['traffic']}.py",
-                         f"bench_driver_{cell['traffic']}")
-    ctx = Context(cell, config, traffic, seed, torch.device(device), common.Recorder())
+    _, cell, config, traffic, driver, family = load_cell(root, cell_name)
+    ctx = Context(cell, config, traffic, family, seed, torch.device(device), common.Recorder())
     t0 = time.perf_counter()
     if side == "control":
         evidence = driver.reference_evidence(ctx, None, "fp8")

@@ -19,7 +19,10 @@ import math
 import torch
 
 from benchmark import common
-from benchmark.reference import transformer as reference
+from benchmark.reference import shared
+
+# the faults of ``faults.py`` this mix's comparison has to catch
+FAULTS = ("half_batch", "answer")
 
 
 class Program:
@@ -30,7 +33,8 @@ class Program:
         cfg, dev = ctx.config, ctx.device
         self.trainer = common.build_trainer(cfg, dev)
         ctx.mark("trainer")
-        self.trainer.model.load_state_dict(common.make_weights(cfg["model"], ctx.seed, dev))
+        self.trainer.model.load_state_dict(
+            common.make_weights(ctx.family, cfg["model"], ctx.seed, dev))
         ctx.mark("weights")
         tr_x, _, te_x, _ = common.make_subject(cfg, ctx.seed, dev)
         self.splits = (tr_x, te_x)
@@ -54,9 +58,10 @@ class Program:
         ebs = self.ctx.config["protocol"]["eval_batch_size"]
         sizes = [b - a for x in self.splits for a, b in common.batches(len(x), ebs)]
         n = sum(len(x) for x in self.splits)
+        fam, model = self.ctx.family, self.ctx.config["model"]
         return {"train_samples": 0, "eval_samples": n,
-                "flops": common.flops_of(self.ctx.config, 0, n),
-                "attention": common.attention_calls(self.ctx.config, sizes, ("fwd",))}
+                "flops": common.flops_of(fam, model, 0, n),
+                "work": fam.kernel_work(model, sizes, False)}
 
     def release(self) -> dict:
         """The evidence, every pass's features; the trainer and the data go."""
@@ -68,14 +73,14 @@ class Program:
 def reference_evidence(ctx, evidence=None, precision: str = "float32") -> dict:
     """Every row's features, computed by the reference at ``precision`` in
     blocks of rows; the program's ``evidence`` is not read."""
-    cfg, dev, model = ctx.config, ctx.device, ctx.config["model"]
-    params = common.make_weights(model, ctx.seed, dev)
+    cfg, dev, model, fam = ctx.config, ctx.device, ctx.config["model"], ctx.family
+    params = common.make_weights(fam, model, ctx.seed, dev)
     tr_x, _, te_x, _ = common.make_subject(cfg, ctx.seed, dev)
     out = []
-    with torch.no_grad(), reference.fp32_matmuls():
+    with torch.no_grad(), shared.fp32_matmuls():
         for x in (tr_x, te_x):
-            for a, b in common.reference_blocks(model, len(x)):
-                out.append(reference.features(x[a:b], params, model, precision))
+            for a, b in fam.reference_blocks(model, len(x)):
+                out.append(fam.features(x[a:b], params, model, precision))
     return {"passes": [torch.cat(out)]}
 
 

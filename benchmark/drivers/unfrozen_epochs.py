@@ -15,7 +15,8 @@ partial evaluation batch. The window's epoch 0 follows. The evidence for
   ``compared_steps`` steps, each step's loss, and each parameter's change
   over them (copied on the card as the window passes, read after it);
 - the first step's logits and last-layer output (hooks on the model and
-  its encoder): the forward's error from the same weights;
+  on the family's ``hidden_module``): the forward's error from the same
+  weights;
 - the window's first evaluation: ``Trainer.predict``'s logits of the test
   split at the end of epoch 0, judged against the reference's from the
   weights the program held then (copied on the card as the window passes:
@@ -44,9 +45,10 @@ import torch
 import torch.nn.functional as F
 
 from benchmark import common
-from benchmark.reference import transformer as reference
+from benchmark.reference import shared
 
-KERNELS = ("fwd", "dkv", "dq")  # the attention work of a training step
+# the faults of ``faults.py`` this mix's comparison has to catch
+FAULTS = ("unchanged", "half_batch", "answer")
 # a leaf's elements whose reference gradient lies under this share of the
 # median leaf's RMS gradient move under Adam by round-off alone (a key's
 # bias under softmax), and are left out of the change
@@ -79,7 +81,7 @@ class Program:
         self.trainer = common.build_trainer(cfg, dev)
         ctx.mark("trainer")
         model = self.trainer.model
-        self.weights = common.make_weights(cfg["model"], ctx.seed, dev)
+        self.weights = common.make_weights(ctx.family, cfg["model"], ctx.seed, dev)
         model.load_state_dict(self.weights)
         ctx.mark("weights")
         set_trainable(model, False, self.trainer.head_regex)  # the unfrozen phase
@@ -93,7 +95,7 @@ class Program:
         self.evidence = {"losses": [], "hidden": [], "logits": []}
         hooks = [m.register_forward_hook(
             lambda module, args, out, key=key: self.evidence[key].append(out.detach().float().clone()))
-            for m, key in ((model.encoder, "hidden"), (model, "logits"))]
+            for m, key in ((ctx.family.hidden_module(model), "hidden"), (model, "logits"))]
         warm = trajectory(ctx)[:-ctx.traffic["compared_steps"]]
         for rows in warm:
             self.evidence["losses"].append(self._step(rows.to(dev)))
@@ -134,10 +136,10 @@ class Program:
             self.evidence["eval"] = logits
         evals = [b - a for a, b in common.batches(len(self.te_x),
                                                   ctx.config["protocol"]["eval_batch_size"])]
+        fam, model = ctx.family, ctx.config["model"]
         return {"train_samples": n, "eval_samples": len(self.te_x),
-                "flops": common.flops_of(ctx.config, n, len(self.te_x)),
-                "attention": (common.attention_calls(ctx.config, sizes, KERNELS)
-                              + common.attention_calls(ctx.config, evals, ("fwd",)))}
+                "flops": common.flops_of(fam, model, n, len(self.te_x)),
+                "work": fam.kernel_work(model, sizes, True) + fam.kernel_work(model, evals, False)}
 
     def release(self) -> dict:
         """The evidence; the trainer, its optimizer and the data go."""
@@ -156,29 +158,29 @@ def reference_evidence(ctx, evidence=None, precision: str = "float32") -> dict:
     weights, rows and order; and the test split's logits from the weights of
     the ``evidence``'s evaluation (without one, from the weights the
     trajectory ends on)."""
-    cfg, dev, model = ctx.config, ctx.device, ctx.config["model"]
+    cfg, dev, model, fam = ctx.config, ctx.device, ctx.config["model"], ctx.family
     proto = cfg["protocol"]
-    weights = common.make_weights(model, ctx.seed, dev)
+    weights = common.make_weights(fam, model, ctx.seed, dev)
     params = {n: w.clone().requires_grad_(True) for n, w in weights.items()}
     tr_x, tr_y, te_x, _ = common.make_subject(cfg, ctx.seed, dev)
     state, losses, first, grad0 = {}, [], {}, None
-    with reference.fp32_matmuls():
+    with shared.fp32_matmuls():
         for idx in trajectory(ctx):
             idx = idx.to(dev)
-            h = reference.hidden(tr_x[idx], params, model, precision)
-            z = reference.head(reference.pool(h, params, model), params, model, precision)
+            h = fam.hidden(tr_x[idx], params, model, precision)
+            z = fam.head(fam.pool(h, params, model), params, model, precision)
             first = first or {"hidden": [h.detach()], "logits": [z.detach()]}
             loss = F.cross_entropy(z, tr_y[idx])
             grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
             grad0 = grad0 or grads
-            reference.adamw_step(params, grads, state, proto["unfrozen_lr"], proto["weight_decay"])
+            shared.adamw_step(params, grads, state, proto["unfrozen_lr"], proto["weight_decay"])
             losses.append(float(loss.detach()))
         del state, grads
         final = {n: p.detach() for n, p in params.items()}
         judged = final if evidence is None else evidence["eval_weights"]
         with torch.no_grad():
-            z = torch.cat([reference.logits(te_x[a:b], judged, model, precision)
-                           for a, b in common.reference_blocks(model, len(te_x))])
+            z = torch.cat([fam.logits(te_x[a:b], judged, model, precision)
+                           for a, b in fam.reference_blocks(model, len(te_x))])
     return {"losses": losses, **first, "grad0": grad0, "eval": z, "eval_weights": final,
             "delta": {n: p - weights[n] for n, p in final.items()}}
 

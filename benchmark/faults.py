@@ -1,13 +1,16 @@
 """Faults planted in the timed path, each of which the comparison has to
-catch (``benchmark/tests/test_bench_faults.py``, ``control.py``):
+catch where a driver's ``FAULTS`` names it
+(``benchmark/tests/test_bench_faults.py``, ``control.py``):
 
 - ``unchanged``: each training step returns the model's state unchanged (the
   parameters are put back after the optimizer's step);
 - ``half_batch``: half of each batch is left out; a training step takes the
   mean loss over the rest, a features pass repeats the rest's rows;
-- ``answer``: one answer altered where it is produced: the first row of the
-  model's every output, logits (training) or features (a pass), comes out
-  negated;
+- ``answer``: one answer altered where it is produced: the first row of
+  every output of the model a ``Trainer`` holds, whatever its class, logits
+  (training) or features (a pass), comes out negated; the model's own
+  ``forward`` is replaced, so a step captured into a CUDA graph replays
+  the negation and the model's forward hooks see it;
 - ``dk_negated`` (planted by ``control.py`` on the card only, where the
   flash kernels run): the attention backward's dK comes out negated, a
   gradient of the right size and the wrong direction.
@@ -18,25 +21,21 @@ The exchange between chips is not among them: every cell runs on one chip.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Iterator
 
 import torch
-
-FAULTS = {"unfrozen_epochs": ("unchanged", "half_batch", "answer"),
-          "features_pass": ("half_batch", "answer")}
 
 
 @contextlib.contextmanager
 def plant(name: str) -> Iterator[None]:
     """The fault ``name`` in the port's ``Trainer`` inside the block."""
-    from eav_tpu_torch.models.ast import AST
-    from eav_tpu_torch.models.vit import ViT
     from eav_tpu_torch.ops.attention import FlashAttentionBackward
     from eav_tpu_torch.train.loop import Trainer
 
-    step, apply = Trainer.train_step, Trainer._apply
+    step, apply, init = Trainer.train_step, Trainer._apply, Trainer.__init__
     backward = FlashAttentionBackward.forward
-    forwards = {m: m.forward for m in (AST, ViT)}
+    answered = []  # weak references to the models whose forward was replaced
 
     def unchanged(self, opt, x, y, *args, **kw):
         before = [p.detach().clone() for p in self.model.parameters()]
@@ -57,11 +56,16 @@ def plant(name: str) -> Iterator[None]:
         out = apply(self, x[:h], mode)
         return torch.cat([out, out])[: len(x)]
 
-    def answering(forward):
-        def altered(self, x, mode="full"):
-            out = forward(self, x, mode)
+    def answering(self, model, *args, **kw):
+        init(self, model, *args, **kw)
+        forward = self.model.forward
+
+        def altered(*a, **k):
+            out = forward(*a, **k)
             return torch.cat([-out[:1], out[1:]])
-        return altered
+
+        self.model.forward = altered
+        answered.append(weakref.ref(self.model))
 
     def dk_negated(*args):
         dq, dk, dv = backward(*args)
@@ -69,7 +73,7 @@ def plant(name: str) -> Iterator[None]:
 
     patches = {"unchanged": {Trainer: {"train_step": unchanged}},
                "half_batch": {Trainer: {"train_step": half_step, "_apply": half_apply}},
-               "answer": {m: {"forward": answering(f)} for m, f in forwards.items()},
+               "answer": {Trainer: {"__init__": answering}},
                "dk_negated": {FlashAttentionBackward: {"forward": staticmethod(dk_negated)}}}[name]
     for cls, attrs in patches.items():
         for attr, fn in attrs.items():
@@ -77,7 +81,9 @@ def plant(name: str) -> Iterator[None]:
     try:
         yield
     finally:
-        Trainer.train_step, Trainer._apply = step, apply
+        Trainer.train_step, Trainer._apply, Trainer.__init__ = step, apply, init
         FlashAttentionBackward.forward = staticmethod(backward)
-        for m, f in forwards.items():
-            m.forward = f
+        for ref in answered:
+            model = ref()
+            if model is not None:
+                del model.forward

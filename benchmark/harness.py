@@ -5,10 +5,14 @@ found by its name in ``BENCHMARK.json``:
 
 - ``benchmark/configs/<config>.json`` (the file the configuration names):
   the preset, the published widths, the subject and the protocol;
+- ``benchmark/families/<family>.py``, by the configuration's
+  ``model.family``: what ``FAMILY`` names, the model's shapes, FLOPs,
+  kernel work and plain reference;
 - ``benchmark/traffic/<mix>.json``: the mix's parameters, read by
   ``benchmark/drivers/<mix>.py``, whose ``Program`` runs the program's set-up
-  and its units of work, and whose ``reference_evidence`` and ``compare``
-  decide ``correct``;
+  and its units of work, whose ``reference_evidence`` and ``compare``
+  decide ``correct``, and whose ``FAULTS`` name the faults of
+  ``faults.py`` that the mix's comparison has to catch;
 - ``benchmark/limits/<cell>.json``: the limit of each number compared, with
   the readings it was set from;
 - ``benchmark/metrics/<metric>.py``: a ``read(run)`` for each metric, which
@@ -41,6 +45,9 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 PROFILED_UNIT = 1  # the window's unit the traced run profiles (``trace.py``)
 FORBIDDEN = ("jax", "jaxlib", "flax", "eav_tpu")  # top-level module names no run may hold
+# what a family file gives (``benchmark/README.md``, "Adding to it")
+FAMILY = ("param_shapes", "forward_flops", "train_flops", "kernel_work", "reference_blocks",
+          "hidden", "pool", "head", "features", "logits", "hidden_module")
 JSON_INF = 1e300  # a reading that is not finite, as the result line prints it
 
 
@@ -50,12 +57,14 @@ class NoCard(RuntimeError):
 
 @dataclass
 class Context:
-    """What a driver sees: the cell's files, the seed, the device, the
-    recorder; ``mark`` times the parts of its set-up."""
+    """What a driver sees: the cell's files, the configuration's family
+    module, the seed, the device, the recorder; ``mark`` times the parts of
+    its set-up."""
 
     cell: dict
     config: dict
     traffic: dict
+    family: object
     seed: int
     device: object
     rec: object
@@ -112,6 +121,29 @@ def load_module(path: Path, name: str):
     return mod
 
 
+def load_family(root: Path, config: dict):
+    """The module of the configuration's model family,
+    ``benchmark/families/<family>.py``, with every name ``FAMILY`` lists."""
+    name = config["model"]["family"]
+    mod = load_module(root / "benchmark" / "families" / f"{name}.py", f"bench_family_{name}")
+    missing = [f for f in FAMILY if not hasattr(mod, f)]
+    if missing:
+        raise AttributeError(f"the family {name!r} lacks {', '.join(missing)}")
+    return mod
+
+
+def load_cell(root: Path, name: str):
+    """The cell ``name``'s files, found by name from ``BENCHMARK.json``:
+    (spec, cell, config, traffic, driver module, family module)."""
+    spec = load_json(root / "BENCHMARK.json")
+    cell = find(spec["workloads"], name, "workload")
+    config = load_json(root / find(spec["configs"], cell["config"], "configuration")["file"])
+    traffic = load_json(root / "benchmark" / "traffic" / f"{cell['traffic']}.json")
+    driver = load_module(root / "benchmark" / "drivers" / f"{cell['traffic']}.py",
+                         f"bench_driver_{cell['traffic']}")
+    return spec, cell, config, traffic, driver, load_family(root, config)
+
+
 def find(entries: List[dict], name: str, what: str) -> dict:
     for e in entries:
         if e["name"] == name:
@@ -166,12 +198,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
     import torch
 
     t_start = time.perf_counter() if t_start is None else t_start
-    spec = load_json(root / "BENCHMARK.json")
-    cell = find(spec["workloads"], name, "workload")
-    config = load_json(root / find(spec["configs"], cell["config"], "configuration")["file"])
-    traffic = load_json(root / "benchmark" / "traffic" / f"{cell['traffic']}.json")
-    driver = load_module(root / "benchmark" / "drivers" / f"{cell['traffic']}.py",
-                         f"bench_driver_{cell['traffic']}")
+    spec, cell, config, traffic, driver, family = load_cell(root, name)
     limits = load_json(root / "benchmark" / "limits" / f"{name}.json")
     metrics = {m["name"]: load_module(root / "benchmark" / "metrics" / f"{m['name']}.py",
                                       f"bench_metric_{m['name']}")
@@ -188,7 +215,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
     from benchmark import common, trace as tracing, yardstick
 
     rec = common.Recorder(trace, device)
-    ctx = Context(cell, config, traffic, seed, device, rec, at=t_start)
+    ctx = Context(cell, config, traffic, family, seed, device, rec, at=t_start)
     ctx.mark("imports")
     program = driver.Program(ctx)
     common.fence(device)

@@ -4,8 +4,8 @@ flash_fwd), as a share."""
 
 from benchmark import readers
 
-KERNELS = ("fwd",)
+KERNELS = ("flash_fwd",)
 
 
 def read(run):
-    return readers.flash_roofline(run, KERNELS)
+    return readers.roofline(run, KERNELS)

@@ -4,8 +4,8 @@ flash_dkv, K3 flash_dq), as a share."""
 
 from benchmark import readers
 
-KERNELS = ("fwd", "dkv", "dq")
+KERNELS = ("flash_fwd", "flash_dkv", "flash_dq")
 
 
 def read(run):
-    return readers.flash_roofline(run, KERNELS)
+    return readers.roofline(run, KERNELS)

@@ -1,6 +1,5 @@
 """What the readers of the port's own spans share
-(``benchmark/metrics/{forward,backward,optimizer}_idle_ms.train.py``,
-``optimizer_device_ms.*``, ``layout_copy_pct.*``).
+(``benchmark/metrics/layout_copy_pct.extract.py``, ``graph_replay_pct.*``).
 
 The port names its layers with spans (``eav_tpu_torch/utils/profiling.span``):
 ``torch.profiler.record_function`` ranges, which the traced run's profile
@@ -20,18 +19,16 @@ was in.
 
 from __future__ import annotations
 
-import statistics
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 TRAIN_STEP = "trainer.train_step"
 LAYOUT = "attention.layout"
-OPTIMIZER = "trainer.optimizer"
 PREFIXES = ("trainer.", "fit.", "attention.", "sweep.")  # the port's span names
 # the spans an idle interval is charged to, innermost first: the step's
 # phases, then the rest of the step, then the evaluation
-PHASES = ("trainer.forward", "trainer.backward", OPTIMIZER, "trainer.maxnorm", TRAIN_STEP,
-          "trainer.evaluate")
+PHASES = ("trainer.forward", "trainer.backward", "trainer.optimizer", "trainer.maxnorm",
+          TRAIN_STEP, "trainer.evaluate")
 OUTSIDE = "outside any port span"
 
 Interval = Tuple[float, float]
@@ -62,12 +59,6 @@ def _subtract(gaps: List[Interval], spans: List[Interval]) -> List[Interval]:
         if d > at:
             out.append((at, d))
     return out
-
-
-def overlap_us(gaps: List[Interval], spans: List[Interval]) -> float:
-    """Microseconds of ``gaps`` (sorted, disjoint) that lie inside any of
-    ``spans``."""
-    return sum(b - a for a, b in gaps) - sum(b - a for a, b in _subtract(gaps, _union(spans)))
 
 
 def host_spans(profile, name: str) -> List[Interval]:
@@ -129,30 +120,10 @@ def reading(run) -> dict:
     return out
 
 
-def idle_ms_per_step(run, name: str) -> Optional[float]:
-    """Device-idle ms a training step inside the annotating thread's spans
-    ``name``: the profiled unit's idle gaps intersected with those spans,
-    over the unit's ``trainer.train_step`` count. Profiled: the profiler
-    slows the host, so compare only traced runs with traced runs."""
-    p = run.profile
-    if p is None or p.busy_s <= 0:
-        return None
-    reading(run)
-    steps, spans = host_spans(p, TRAIN_STEP), host_spans(p, name)
-    if not steps or not spans:
-        return None
-    return overlap_us(p.gaps(), spans) * 1e-3 / len(steps)
-
-
 def device_ms(run, name: str) -> List[float]:
     """The device ms of each device-timed span ``name`` (event to event)."""
     spans = reading(run)["device"] or []
     return [ms for n, ms in spans if n == name]
-
-
-def median_device_ms(run, name: str) -> Optional[float]:
-    values = device_ms(run, name)
-    return statistics.median(values) if values else None
 
 
 def share_of_busy_pct(run, name: str) -> Optional[float]:

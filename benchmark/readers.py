@@ -10,10 +10,6 @@ from typing import Optional, Tuple
 
 from benchmark import yardstick
 
-# the names the port's flash kernels carry in a device trace
-FLASH = {"fwd": "flash_fwd", "dkv": "flash_dkv", "dq": "flash_dq"}
-
-
 def training(unit: dict) -> bool:
     return unit["train_samples"] > 0
 
@@ -76,25 +72,26 @@ def idle_pct(run, train: bool) -> Optional[float]:
     return 100.0 * (1.0 - p.busy_s / statistics.median(u["seconds"] for u in steady))
 
 
-def flash_roofline(run, kernels: Tuple[str, ...]) -> Optional[float]:
-    """The least time of the profiled unit's attention work (from the
-    model's shapes, ``yardstick.attention_work``) for ``kernels`` (keys of
-    ``FLASH``) over the device time of those kernels in the stretch. Notes
-    the launches the port's counters saw against the calls expected."""
+def roofline(run, kernels: Tuple[str, ...]) -> Optional[float]:
+    """The least time of the profiled unit's work for ``kernels`` (the
+    names the trace and the port's launch counters give them), summed over
+    the unit's ``work`` entries (kernel, FLOP, bytes, calls) that the family
+    counted from the model's shapes, over the device time of those kernels
+    in the stretch. Notes the launches the port's counters saw against the
+    calls expected."""
     p, unit = run.profile, profiled_unit(run)
     if p is None or run.peaks is None or unit is None:
         return None
-    seconds, launches = p.kernel_seconds(tuple(FLASH[k] for k in kernels))
+    seconds, launches = p.kernel_seconds(kernels)
     if launches == 0:
         return None
     least, expected = 0.0, {k: 0 for k in kernels}
-    for kind, bh, t, d, calls in unit["attention"]:
-        if kind in kernels:
-            flop, nbytes = yardstick.attention_work(kind, bh, t, d)
+    for kernel, flop, nbytes, calls in unit["work"]:
+        if kernel in expected:
             least += calls * yardstick.least_seconds(flop, nbytes, run.peaks)
-            expected[kind] += calls
+            expected[kernel] += calls
     for k in kernels:
-        counted = run.counters.get(FLASH[k])
-        run.note(f"{FLASH[k]}: {counted} launches counted, {expected[k]} calls expected"
+        counted = run.counters.get(k)
+        run.note(f"{k}: {counted} launches counted, {expected[k]} calls expected"
                  + ("" if counted == expected[k] else " (differ)"))
     return 100.0 * least / seconds

@@ -46,3 +46,27 @@ def test_a_backward_of_the_wrong_direction_fails_on_the_card():
     cell = "ast_base.unfrozen"
     ok, got = passes(cell, "dk_negated", 2**31 + 103)
     assert not ok and got["change_dir_gap"] > limits(cell)["change_dir_gap"], got
+
+
+@pytest.mark.cuda
+def test_the_answer_fault_is_caught_in_replayed_steps(monkeypatch):
+    """``answer`` on the card, where the window's steps replay CUDA graphs:
+    the replays carry the negated row (the last compared step, a replay,
+    reads a loss gap above the worst step of every sound run behind the
+    limits: their ``lower`` reading), and the comparison fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the training step replays a CUDA graph only there")
+    from eav_tpu_torch.train.loop import Trainer
+
+    replays, replay = [], Trainer._replay
+
+    def counted(self, *args):
+        replays.append(1)
+        return replay(self, *args)
+
+    monkeypatch.setattr(Trainer, "_replay", counted)
+    cell = "ast_base.unfrozen"
+    ok, got = passes(cell, "answer", 2**31 + 107)
+    assert replays and not ok, got
+    sound = load_json(ROOT / f"benchmark/limits/{cell}.json")["limits"]["loss_gap"]["lower"]
+    assert got["step_loss_gaps"][-1] > sound, got

@@ -1,17 +1,25 @@
-"""Each fault the timed path can have, planted under a run that skips the
-look for a card (``run_cell`` on the CPU at a tiny size), turns ``correct``
-false; the same run unbroken is correct (``test_bench_harness.py``)."""
+"""Each fault the timed path can have (each that the cell's driver names in
+its ``FAULTS``), planted under a run that skips the look for a card
+(``run_cell`` on the CPU at a tiny size), turns ``correct`` false; the same
+run unbroken is correct (``test_bench_harness.py``)."""
 
 import pytest
 import torch
 
 from benchmark import faults
-from benchmark.harness import Context, load_json, run_cell
+from benchmark.harness import Context, load_json, load_module, run_cell
 
 from conftest import ROOT
 
 SPEC = load_json(ROOT / "BENCHMARK.json")
-CASES = [(c["name"], f) for c in SPEC["workloads"] for f in faults.FAULTS[c["traffic"]]]
+
+
+def driver_faults(mix: str) -> tuple:
+    """The faults the mix's driver declares its comparison catches."""
+    return load_module(ROOT / "benchmark" / "drivers" / f"{mix}.py", f"faults_of_{mix}").FAULTS
+
+
+CASES = [(c["name"], f) for c in SPEC["workloads"] for f in driver_faults(c["traffic"])]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)

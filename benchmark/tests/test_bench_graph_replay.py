@@ -35,7 +35,7 @@ def _profile(replayed, eager):
 
 def _run(profile):
     unit = {"train_samples": 16, "eval_samples": 4, "flops": 0.0,
-            "seconds": 1.0, "attention": [], "profiled": True}
+            "seconds": 1.0, "work": [], "profiled": True}
     return Run({}, {}, {}, 1.0, 2.0, [dict(unit, profiled=False), unit], profile=profile)
 
 

@@ -13,7 +13,7 @@ import torch
 
 from conftest import ROOT
 
-from benchmark import readers, trace
+from benchmark import readers, trace, yardstick
 from benchmark.harness import Run, cell_metrics, forbidden_modules, load_json, run_cell
 
 SPEC = load_json(ROOT / "BENCHMARK.json")
@@ -60,9 +60,13 @@ def test_benchmark_json_keeps_the_contract():
 def test_each_cell_finds_its_files(cell):
     c = next(w for w in SPEC["workloads"] if w["name"] == cell)
     bench = ROOT / "benchmark"
+    config = next(e for e in SPEC["configs"] if e["name"] == c["config"])
+    family = load_json(ROOT / config["file"])["model"]["family"]
     for path in (bench / "traffic" / f"{c['traffic']}.json",
                  bench / "drivers" / f"{c['traffic']}.py",
-                 bench / "limits" / f"{cell}.json"):
+                 bench / "limits" / f"{cell}.json",
+                 bench / "families" / f"{family}.py",
+                 bench / "tests" / "tiny" / f"{c['config']}.json"):
         assert path.exists(), path
     for m in cell_metrics(SPEC, cell, False) + cell_metrics(SPEC, cell, True):
         assert (bench / "metrics" / f"{m['name']}.py").exists()
@@ -177,26 +181,31 @@ def _run(units, profile=None, peaks=None, counters=None):
 
 def test_readers_read_nothing_rather_than_zero():
     unit = {"train_samples": 8, "eval_samples": 4, "flops": 1e12, "seconds": 2.0,
-            "attention": [("fwd", 96, 1214, 64, 12)]}
+            "work": [("flash_fwd", *yardstick.attention_work("fwd", 96, 1214, 64), 12)]}
     run = _run([dict(unit), dict(unit, profiled=True)])
     assert readers.mfu(run, True) is None  # no card, no peak
-    assert readers.flash_roofline(run, ("fwd",)) is None
+    assert readers.roofline(run, ("flash_fwd",)) is None
     assert readers.idle_pct(run, True) is None
     assert readers.per_second(run, train=False) is None  # a training window
     assert readers.per_second(run, train=True) == pytest.approx(16 / 4.0)
 
 
 def test_flash_roofline_counts_work_from_shapes():
+    """The least time of the unit's work entries, as the family counts them
+    from the model's shapes, over the kernels' time in the trace; entries
+    of other kernels do not count."""
     events = [_event("user_annotation", trace.ANNOTATION, 0, 1000),
               _event("kernel", "flash_fwd_wgmma<64>", 0, 100, tid=7)]
     unit = {"train_samples": 0, "eval_samples": 1, "flops": 0.0, "seconds": 1.0,
-            "attention": [("fwd", 96, 1214, 64, 2)], "profiled": True}
+            "work": [("flash_fwd", *yardstick.attention_work("fwd", 96, 1214, 64), 2),
+                     ("flash_dq", *yardstick.attention_work("dq", 96, 1214, 64), 2)],
+            "profiled": True}
     peaks = {"bfloat16": 989e12, "bytes": 3.35e12}
     run = _run([dict(unit, profiled=False), unit], trace.Profile(events), peaks,
                {"flash_fwd": 2})
     flop, nbytes = 4 * 1214**2 * 64 * 96, 4 * 96 * 1214 * 64 * 2 + 96 * 1214 * 4
     least = 2 * max(flop / 989e12, nbytes / 3.35e12)
-    assert readers.flash_roofline(run, ("fwd",)) == pytest.approx(100 * least / 100e-6)
+    assert readers.roofline(run, ("flash_fwd",)) == pytest.approx(100 * least / 100e-6)
     assert run.notes == ["flash_fwd: 2 launches counted, 2 calls expected"]
     assert readers.idle_pct(run, False) == pytest.approx(100 * (1 - 100e-6 / 1.0))
     assert math.isfinite(readers.p95([1.0, 2.0, 3.0])) and readers.p95([]) is None

@@ -1,7 +1,8 @@
 """The reference equals the port's AST and ViT at tiny widths on the CPU, in
 float32 with plain attention, on the weights the benchmark makes: logits,
-features, and one training step's loss and gradients. (This test imports
-both; the reference itself imports nothing of the port.)"""
+features, and one training step's loss and gradients, each as the family
+file gives it. (This test imports both; the reference itself imports
+nothing of the port.)"""
 
 import json
 
@@ -12,6 +13,8 @@ import torch.nn.functional as F
 from conftest import ROOT, TINY
 
 from benchmark import common
+from benchmark.harness import load_family
+from benchmark.reference import shared
 from benchmark.reference import transformer as reference
 
 
@@ -35,20 +38,25 @@ def port_model(cfg):
 @pytest.mark.parametrize("name", ["ast_base", "vit_base"])
 def test_reference_equals_the_port_in_float32(name):
     cfg = tiny(name)
-    weights = common.make_weights(cfg["model"], 5, "cpu")
+    fam = load_family(ROOT, cfg)
+    weights = common.make_weights(fam, cfg["model"], 5, "cpu")
     model = port_model(cfg)
     model.load_state_dict(weights)  # strict: the same names and shapes
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
-        {k: s for k, (s, _) in reference.param_shapes(cfg["model"]).items()}
+        {k: s for k, (s, _, _) in fam.param_shapes(cfg["model"]).items()}
     x, y, _, _ = common.make_subject(cfg, 5, "cpu")
     x, y = x[:4], y[:4]
+    seen = []
+    fam.hidden_module(model).register_forward_hook(lambda m, args, out: seen.append(out))
     with torch.no_grad():
-        torch.testing.assert_close(reference.features(x, weights, cfg["model"]),
+        torch.testing.assert_close(fam.features(x, weights, cfg["model"]),
                                    model(x, mode="features"), rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(reference.logits(x, weights, cfg["model"]), model(x),
+        torch.testing.assert_close(fam.logits(x, weights, cfg["model"]), model(x),
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(fam.hidden(x, weights, cfg["model"]), seen[-1],
                                    rtol=1e-5, atol=1e-5)
     params = {n: w.clone().requires_grad_(True) for n, w in weights.items()}
-    loss = F.cross_entropy(reference.logits(x, params, cfg["model"]), y)
+    loss = F.cross_entropy(fam.logits(x, params, cfg["model"]), y)
     grads = torch.autograd.grad(loss, list(params.values()))
     port_loss = F.cross_entropy(model(x), y)
     port_loss.backward()
@@ -66,7 +74,7 @@ def test_adamw_equals_torch():
     state = {}
     for _ in range(3):
         g = torch.randn(5, 3)
-        reference.adamw_step(p, {"w": g}, state, 1e-2, 0.01)
+        shared.adamw_step(p, {"w": g}, state, 1e-2, 0.01)
         q.grad = g.clone()
         opt.step()
     torch.testing.assert_close(p["w"], q.detach(), rtol=1e-6, atol=1e-7)
