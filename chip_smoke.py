@@ -18,6 +18,12 @@ Phases, each of which fails the run on error:
    kernel and library call timed twice: one call between two CUDA events
    (``ms``, host work before the launch included) and a run of 20
    back-to-back calls (``ms_run``, the device's time a call);
+3b. causal kernels: K1-K3's causal mode (keys j <= i, LFM2-MoE's attention)
+   at LFM2-24B-A2B's shape (B·H 128, T 8192, D 64, bf16) against the causal
+   plain versions 8 heads at a time with phase 3's tolerances, a planted
+   fault (the plain versions without the causal mask: an unmasked kernel)
+   that the same checks must reject, the launches of those calls, and each
+   kernel timed as in phase 3 beside its bound (half the FLOPs);
 4. model and frontend: full-width AST-base with flash attention against math
    attention on the same weights, resampling and fbank on the card against
    the CPU;
@@ -471,11 +477,13 @@ def time_kernels(seed: int) -> dict:
     return {n: (*ms, *library[n]) for n, ms in times.items()}
 
 
-def kernel_bounds(t: int, bh: int = B * H, dtype_name: str = "bfloat16") -> dict:
+def kernel_bounds(t: int, bh: int = B * H, dtype_name: str = "bfloat16",
+                  causal: bool = False) -> dict:
     """Least time (ms) and what bounds it, for each kernel at (``bh``, t, D):
     matmul FLOPs at the card's peak for the type (bf16 on the tensor cores;
     the float32 kernels compute by FMA, at the float32 peak), or each
-    operand read once and each output written once at the memory rate."""
+    operand read once and each output written once at the memory rate.
+    ``causal``: half the FLOPs (the keys j <= i), the same bytes."""
     peak = PEAK_BF16_FLOPS if dtype_name == "bfloat16" else PEAK_F32_FLOPS
     mat = bh * t * D * (2 if dtype_name == "bfloat16" else 4)  # one (BH, T, D) operand
     row = bh * t * 4  # one float32 (BH, T) row statistic
@@ -487,9 +495,77 @@ def kernel_bounds(t: int, bh: int = B * H, dtype_name: str = "bfloat16") -> dict
     }
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops = flops / peak * 1e3
+        t_ops = flops / (2 if causal else 1) / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+T_LFM2, BH_LFM2 = 8192, 128  # LFM2-24B-A2B's attention: rows of 8,192 tokens, 4 x 32 heads
+
+
+def check_causal_kernels(card: str, step: int = 8) -> dict:
+    """Phase 3b: K1-K3's causal mode at LFM2-24B-A2B's attention shape (bf16,
+    B·H 128, T 8192, D 64), the kernels over the whole batch against the
+    causal plain versions ``step`` heads at a time (a plain (8, T, T)
+    float32 score block is 2 GB), with phase 3's tolerances; the plain
+    versions without the causal mask (an unmasked kernel) must fail the
+    same checks. Then each kernel timed (one call, and a call in a run of
+    20) beside its bound. Returns {kernel: {launches (of the checked calls),
+    max_abs_err, ms, ms_run, bound_ms}}."""
+    import torch
+
+    from eav_tpu_torch.ops import attention as A
+
+    bh, t = BH_LFM2, T_LFM2
+    tol, tol_lse = TOLERANCE["bfloat16"]["out"], TOLERANCE["bfloat16"]["lse"]
+    q, k, v, do = kernel_inputs(t, torch.bfloat16, 8192, bh)
+    plain = [A.flash_fwd_plain(q[i:i + step], k[i:i + step], v[i:i + step], t, True)
+             for i in range(0, bh, step)]
+    o_p, lse_p = torch.cat([o for o, _ in plain]), torch.cat([lse for _, lse in plain])
+    del plain
+    di = (do.float() * o_p.float()).sum(-1)
+    kernels = (A.flash_fwd, A.flash_dkv, A.flash_dq)
+    before = [fn.launches for fn in kernels]
+    o, lse = A.flash_fwd(q, k, v, t, True)
+    dk, dv = A.flash_dkv(q, k, v, do, lse_p, di, t, True)
+    dq = A.flash_dq(q, k, v, do, lse_p, di, t, True)
+    torch.cuda.synchronize()
+    out = {fn.__name__: {"launches": fn.launches - n, "max_abs_err": 0.0}
+           for fn, n in zip(kernels, before)}
+    if any(r["launches"] != 1 for r in out.values()):
+        raise AssertionError(f"each causal kernel should have launched once: {out}")
+    for i in range(0, bh, step):
+        sl = slice(i, i + step)
+        args = (q[sl], k[sl], v[sl], do[sl], lse_p[sl], di[sl], t)
+        dk_p, dv_p = A.flash_dkv_plain(*args, True)
+        errs = {"flash_fwd": max(max_err(o[sl], o_p[sl], *tol),
+                                 max_err(lse[sl], lse_p[sl], *tol_lse)),
+                "flash_dkv": max(max_err(dk[sl], dk_p, *tol), max_err(dv[sl], dv_p, *tol)),
+                "flash_dq": max_err(dq[sl], A.flash_dq_plain(*args, True), *tol)}
+        for n, e in errs.items():
+            out[n]["max_abs_err"] = max(out[n]["max_abs_err"], e)
+    # planted fault: attention without the causal mask must fail every check
+    sl = slice(0, step)
+    args = (q[sl], k[sl], v[sl], do[sl], lse_p[sl], di[sl], t)
+    o_f, lse_f = A.flash_fwd_plain(q[sl], k[sl], v[sl], t)
+    dk_f, dv_f = A.flash_dkv_plain(*args)
+    for got, want, tl, what in ((o[sl], o_f, tol, "O"), (lse[sl], lse_f, tol_lse, "LSE"),
+                                (dk[sl], dk_f, tol, "dK"), (dv[sl], dv_f, tol, "dV"),
+                                (dq[sl], A.flash_dq_plain(*args), tol, "dQ")):
+        must_reject(got, want, *tl, f"causal {what} against attention without the causal mask")
+    calls = {"flash_fwd": lambda: A.flash_fwd(q, k, v, t, True),
+             "flash_dkv": lambda: A.flash_dkv(q, k, v, do, lse_p, di, t, True),
+             "flash_dq": lambda: A.flash_dq(q, k, v, do, lse_p, di, t, True)}
+    bounds = kernel_bounds(t, bh, causal=True)
+    for n, fn in calls.items():
+        out[n].update(ms=cuda_ms(fn), ms_run=cuda_ms_run(fn), bound_ms=bounds[n][0])
+    log(f"causal kernels BH={bh} T={t} D={D} bf16: " + "; ".join(
+        f"{n} max abs err {r['max_abs_err']:.3g}, {r['launches']} launch(es), {r['ms']:.3f} ms "
+        f"one call, {r['ms_run']:.3f} ms a call in a run of 20, bound {r['bound_ms']:.4f} ms"
+        for n, r in out.items())
+        + f" (atol, rtol {tol}; LSE {tol_lse}); without the causal mask O, LSE, dK, dV, dQ "
+        f"fail on {card}")
     return out
 
 
@@ -2941,8 +3017,10 @@ def check_entry(card: str) -> None:
     xr = torch.randn(x.shape, generator=gen, device="cuda")
     got = forward(model, xr)
     fwd = A.FlashAttention.forward  # K1 through its counted wrapper, as the faults call it
-    faults = {"no 1/sqrt(D) scale": lambda q, k, v, t: fwd(q * q.shape[-1] ** 0.5, k, v, t),
-              "keys of the next sample": lambda q, k, v, t: fwd(q, k.roll(H, 0), v.roll(H, 0), t)}
+    faults = {"no 1/sqrt(D) scale":
+              lambda q, k, v, t, causal=False: fwd(q * q.shape[-1] ** 0.5, k, v, t, causal),
+              "keys of the next sample":
+              lambda q, k, v, t, causal=False: fwd(q, k.roll(H, 0), v.roll(H, 0), t, causal)}
     bad = {}
     for what, fault in faults.items():
         A.FlashAttention.forward = staticmethod(fault)
@@ -3260,6 +3338,8 @@ def main() -> int:
             f"{bounds[n][0]:.4f} ms by {bounds[n][1]}) at BH {B * H}, T {T_AST}, D {D}, bf16 "
             f"on {card}")
     mark("3. kernels")
+    causal = check_causal_kernels(card)
+    mark("3b. causal kernels")
     check_model_and_frontend()
     mark("4. model and frontend")
 
@@ -3360,7 +3440,7 @@ def main() -> int:
             "launches": launches[n], "max_abs_err": errs[n], "ms": ms, "ms_run": ms_run,
             "plain_ms": plain,
             "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": lib,
-            "library_ms_run": lib_run,
+            "library_ms_run": lib_run, "causal": causal.get(n),
         })
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Dataclass configs and the presets of the JAX package: ``eegnet_subject``,
 ``scnn_audio``, ``ast_finetune``, ``vit_finetune``, ``fusion_sweep``,
-``conformer_eeg`` and ``resnet_vision``.
+``conformer_eeg`` and ``resnet_vision``; and the port's own
+``lfm2_moe_finetune`` (after them in ``PRESETS``).
 
 A copy of ``eav_tpu/core/config.py``'s dataclasses and presets, with the same
 field names and defaults. ``EEGPreprocConfig``, ``AudioPreprocConfig`` and
@@ -256,6 +257,24 @@ def _ast_finetune() -> FinetuneConfig:
     )
 
 
+def _lfm2_moe_finetune() -> FinetuneConfig:
+    # LFM2-MoE as EAV's classifier over token rows: AdamW with decay 0.01,
+    # batch 4 and evaluation batch 8 (a row is 8,192 tokens), an unfrozen
+    # fine-tune at 1e-5 after a frozen head phase as AST's; bf16 compute and
+    # residual stream, causal attention through the flash kernels.
+    return FinetuneConfig(
+        model="lfm2_moe",
+        batch_size=4,
+        weight_decay=0.01,
+        phases=(
+            PhaseConfig(epochs=2, lr=5e-4, freeze=True),
+            PhaseConfig(epochs=3, lr=1e-5, freeze=False),
+        ),
+        eval_batch_size=8,
+        model_kwargs={"compute_dtype": "bfloat16", "stream_dtype": "bfloat16"},
+    )
+
+
 def _vit_finetune() -> FinetuneConfig:
     # Reference `Dataload_vision.py:140-141`: bs 128, 10 epochs at 5e-4 frozen,
     # then 5 at 5e-6 unfrozen; trial vote = mean logits over 25 frames
@@ -393,6 +412,13 @@ PRESETS: Dict[str, PresetConfig] = {
             ),
             vote_group=25,
         ),
+    ),
+    "lfm2_moe_finetune": PresetConfig(
+        name="lfm2_moe_finetune",
+        description="LFM2-MoE (gated short conv + causal GQA + 64-expert MoE) as the "
+        "classifier of token rows",
+        split=SplitConfig(),
+        finetune=_lfm2_moe_finetune(),
     ),
 }
 

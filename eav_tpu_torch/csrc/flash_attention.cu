@@ -11,7 +11,15 @@
 //
 // Operands are head-major (BH, T_pad, D), row-major and contiguous, in float32
 // or bfloat16. Keys at or beyond t_real are masked by adding -1e30 to their
-// scores, so exp() gives exactly 0 and no NaN appears. All products accumulate
+// scores, so exp() gives exactly 0 and no NaN appears. K1-K3 also have a
+// causal mode (the template parameter CAUSAL, chosen by the launchers' causal
+// flag; the non-causal instantiation is the code without it): query i sees
+// keys j <= i only. A block skips the key (or query) tiles that lie wholly
+// on the masked side of the diagonal and masks the scores of the tile that
+// straddles it; the 64-row query and key tiles line up, so one tile a block
+// straddles it. The causal K1 and K3 run their query tiles in reverse order
+// (blockIdx.x 0 takes the last, which sees every key), so the longest blocks
+// start first; K2's longest already do. All products accumulate
 // in float32, and the softmax state (m, l, lse) is float32. The rounding points
 // of the TPU kernels are kept: P is rounded to V's type before P.V and dS to
 // Q's type before dS.K and dS^T.Q.
@@ -114,7 +122,7 @@ __device__ __forceinline__ void tile_dot(float (&acc)[MI][4], const float* A,
 // K1: forward. Block (q tile, bh); loops over the K/V tiles that hold real
 // keys, carrying the online-softmax state m, l and the output accumulator.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
@@ -128,7 +136,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ps = Vs + BLOCK * LD;
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BLOCK;
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BLOCK;
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
@@ -143,8 +152,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
   }
 
-  // tiles wholly past t_real would change nothing (p = 0, alpha = 1)
-  const int nk = (t_real + BLOCK - 1) / BLOCK;
+  // tiles wholly past t_real (or, causal, past the diagonal) would change
+  // nothing (p = 0, alpha = 1)
+  const int nk_real = (t_real + BLOCK - 1) / BLOCK;
+  const int nk = CAUSAL ? min(nk_real, qt + 1) : nk_real;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BLOCK;
     __syncthreads();  // the previous tile's Ks, Vs and Ps are consumed
@@ -165,6 +176,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] = scale * s[i][j] + bias[j];
+        if (CAUSAL && k0 + tx + 16 * j > q0 + ty + 16 * i) s[i][j] = NEG_INF;
         rowmax = fmaxf(rowmax, s[i][j]);
       }
       const float m_new = fmaxf(m[i], group_max(rowmax));
@@ -214,7 +226,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 //   P = exp(S - lse), dV += P^T dO, dP = dO V^T, dS = P (dP - di),
 //   dK += scale dS^T Q
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
@@ -254,7 +266,8 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < CJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   const int nq = (t_pad + BLOCK - 1) / BLOCK;
-  for (int qt = 0; qt < nq; ++qt) {
+  // causal: the query tiles from this key tile's own on
+  for (int qt = CAUSAL ? blockIdx.x : 0; qt < nq; ++qt) {
     const int q0 = qt * BLOCK;
     __syncthreads();
     load_tile<D>(Qs, q + base, q0, t_pad);
@@ -273,7 +286,8 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       const bool valid = q0 + r < t_pad;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = valid ? expf(scale * s[i][j] + bias[j] - Ls[r]) : 0.f;
+        const bool seen = !CAUSAL || k0 + tx + 16 * j <= q0 + r;
+        const float p = valid && seen ? expf(scale * s[i][j] + bias[j] - Ls[r]) : 0.f;
         const float ds = p * (dp[i][j] - Dis[r]);
         Ps[r * PLD + tx + 16 * j] = p;
         dSs[r * PLD + tx + 16 * j] = ds;
@@ -322,7 +336,7 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // K3: dQ. Block (q tile, bh); loops over the K/V tiles that hold real keys
 // (the others give dS = 0). dQ += scale dS K.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
@@ -340,7 +354,8 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Dis = Ls + BLOCK;
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BLOCK;
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BLOCK;
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
@@ -355,7 +370,8 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CJ; ++c) dq_acc[i][c] = 0.f;
 
-  const int nk = (t_real + BLOCK - 1) / BLOCK;
+  const int nk_real = (t_real + BLOCK - 1) / BLOCK;
+  const int nk = CAUSAL ? min(nk_real, qt + 1) : nk_real;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BLOCK;
     __syncthreads();
@@ -375,7 +391,8 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       const bool valid = q0 + r < t_pad;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = valid ? expf(scale * s[i][j] + bias[j] - Ls[r]) : 0.f;
+        const bool seen = !CAUSAL || k0 + tx + 16 * j <= q0 + r;
+        const float p = valid && seen ? expf(scale * s[i][j] + bias[j] - Ls[r]) : 0.f;
         dSs[r * PLD + tx + 16 * j] = p * (dp[i][j] - Dis[r]);
       }
     }
@@ -797,6 +814,19 @@ __device__ __forceinline__ void fwd_scores(float (&s)[FWD_BK / 8][4], uint32_t q
       if (k0 + 8 * j + 2 * c + (i & 1) >= t_real) s[j][i] = NEG_INF;
 }
 
+// The causal diagonal tile (query tile q0, key tile k0 == q0): the keys past
+// each of this thread's query rows set to -1e30. Every row keeps its own key,
+// so its max stays finite.
+static_assert(FWD_BK == WG_ROWS, "a causal query tile straddles one key tile");
+__device__ __forceinline__ void causal_mask(float (&s)[FWD_BK / 8][4], int q0, int k0) {
+  const int w = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < FWD_BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (k0 + 8 * j + 2 * c + (i & 1) > q0 + 16 * w + g + 8 * (i >> 1)) s[j][i] = NEG_INF;
+}
+
 // acc += P V for one key tile, waited for (acc is rescaled next and the
 // stage refilled): P (the f32 probabilities in p) rounded to V's type as the
 // register A operand, the row-major V tile read MN-major.
@@ -884,7 +914,7 @@ __device__ __forceinline__ void fwd_store(bf16* __restrict__ o, float* __restric
 // exp2 with scale log2(e) folded in), acc rescaled by alpha, then acc +=
 // bf16(P) V. l is this thread's share of the row sum over the unrounded P
 // (alpha is the same over the quad), summed over the quad at the end.
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(WG_THREADS)
 flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
@@ -893,9 +923,11 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NT = FWD_BK / 8;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align1024(smem_raw);
-  const int bh = blockIdx.y, q0 = blockIdx.x * WG_ROWS;
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int bh = blockIdx.y, q0 = qt * WG_ROWS;
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
-  const int nk = (t_real + FWD_BK - 1) / FWD_BK;
+  const int nk_real = (t_real + FWD_BK - 1) / FWD_BK;
+  const int nk = CAUSAL ? min(nk_real, qt + 1) : nk_real;  // causal: up to the diagonal tile
   const FwdRing<D, P::K1_STAGES> ring{Qs + P::QBYTES, k + base, v + base, t_pad, nk, nk};
 
   issue_swz<WG_ROWS, D>(Qs, q + base, q0, t_pad);
@@ -911,6 +943,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t k_sm = ring.advance(kt);
     float s[NT][4];
     fwd_scores<D>(s, q_sm, k_sm, kt * FWD_BK, t_real);
+    if (CAUSAL && kt == qt) causal_mask(s, q0, kt * FWD_BK);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -961,7 +994,7 @@ struct DqPlan {
   static constexpr size_t SMEM = 1024 + 2 * QBYTES + STAGES * 2 * KBYTES;
 };
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(WG_THREADS)
 flash_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -974,10 +1007,13 @@ flash_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* dOs = Qs + P::QBYTES;
   unsigned char* ring = dOs + P::QBYTES;  // stage s: K tile, then V tile
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * WG_ROWS;
+  static_assert(DQ_BK == WG_ROWS, "a causal query tile straddles one key tile");
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int bh = blockIdx.y, q0 = qt * WG_ROWS;
   const int w = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, c = threadIdx.x % 4;
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
-  const int nk = (t_real + DQ_BK - 1) / DQ_BK;
+  const int nk_real = (t_real + DQ_BK - 1) / DQ_BK;
+  const int nk = CAUSAL ? min(nk_real, qt + 1) : nk_real;  // causal: up to the diagonal tile
 
   issue_swz<WG_ROWS, D>(Qs, q + base, q0, t_pad);
   issue_swz<WG_ROWS, D>(dOs, dout + base, q0, t_pad);
@@ -1031,7 +1067,8 @@ flash_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1, key = k0 + 8 * j + 2 * c + (i & 1);
-        s[j][i] = valid[r] && key < t_real ? exp2f(scale2 * s[j][i] - lse2[r]) : 0.f;
+        const bool seen = !CAUSAL || key <= q0 + 16 * w + g + 8 * r;
+        s[j][i] = valid[r] && key < t_real && seen ? exp2f(scale2 * s[j][i] - lse2[r]) : 0.f;
       }
     wgmma_wait<0>();
     pin(dp);
@@ -1073,7 +1110,7 @@ struct DkvPlan {
       1024 + 2 * KBYTES + STAGES * 2 * QBYTES + STAGES * 2 * BQ * sizeof(float);
 };
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(WG_THREADS)
 flash_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -1093,15 +1130,19 @@ flash_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = static_cast<size_t>(bh) * t_pad * D;
   const float* lse_bh = lse + static_cast<size_t>(bh) * t_pad;
   const float* di_bh = di + static_cast<size_t>(bh) * t_pad;
-  const int nq = (t_pad + BQ - 1) / BQ;
+  // causal: the query steps from the one holding this tile's first key on
+  // (BQ divides WG_ROWS, so that step starts at k0)
+  const int qbeg = CAUSAL ? k0 / BQ : 0;
+  const int nq = (t_pad + BQ - 1) / BQ - qbeg;
 
   issue_swz<WG_ROWS, D>(Ks, k + base, k0, t_pad);
   issue_swz<WG_ROWS, D>(Vs, v + base, k0, t_pad);
-  for (int t = 0; t < ST - 1; ++t) {  // group t: query step t (group 0 also K and V)
+  for (int t = 0; t < ST - 1; ++t) {  // group t: query step qbeg + t (group 0 also K and V)
     if (t < nq) {
-      issue_swz<BQ, D>(ring + t * 2 * P::QBYTES, q + base, t * BQ, t_pad);
-      issue_swz<BQ, D>(ring + t * 2 * P::QBYTES + P::QBYTES, dout + base, t * BQ, t_pad);
-      issue_stats<BQ>(stats + t * 2 * BQ, stats + t * 2 * BQ + BQ, lse_bh, di_bh, t * BQ, t_pad);
+      const int r0 = (qbeg + t) * BQ;
+      issue_swz<BQ, D>(ring + t * 2 * P::QBYTES, q + base, r0, t_pad);
+      issue_swz<BQ, D>(ring + t * 2 * P::QBYTES + P::QBYTES, dout + base, r0, t_pad);
+      issue_stats<BQ>(stats + t * 2 * BQ, stats + t * 2 * BQ + BQ, lse_bh, di_bh, r0, t_pad);
     }
     cp_async_commit();
   }
@@ -1121,14 +1162,13 @@ flash_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const int next = qt + ST - 1;
     if (next < nq) {
-      const int s = next % ST;
-      issue_swz<BQ, D>(ring + s * 2 * P::QBYTES, q + base, next * BQ, t_pad);
-      issue_swz<BQ, D>(ring + s * 2 * P::QBYTES + P::QBYTES, dout + base, next * BQ, t_pad);
-      issue_stats<BQ>(stats + s * 2 * BQ, stats + s * 2 * BQ + BQ, lse_bh, di_bh, next * BQ,
-                      t_pad);
+      const int s = next % ST, r0 = (qbeg + next) * BQ;
+      issue_swz<BQ, D>(ring + s * 2 * P::QBYTES, q + base, r0, t_pad);
+      issue_swz<BQ, D>(ring + s * 2 * P::QBYTES + P::QBYTES, dout + base, r0, t_pad);
+      issue_stats<BQ>(stats + s * 2 * BQ, stats + s * 2 * BQ + BQ, lse_bh, di_bh, r0, t_pad);
     }
     cp_async_commit();
-    const int q0 = qt * BQ, slot = qt % ST;
+    const int q0 = (qbeg + qt) * BQ, slot = qt % ST;
     const uint32_t q_sm = smem_u32(ring + slot * 2 * P::QBYTES), do_sm = q_sm + P::QBYTES;
     const float* Ls = stats + slot * 2 * BQ;
     const float* Dis = Ls + BQ;
@@ -1149,8 +1189,11 @@ flash_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bool q_ok = q0 + col < t_pad;
         const float l2 = Ls[col] * LOG2E;
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          st[j][2 * r + e] = q_ok && key_ok[r] ? exp2f(scale2 * st[j][2 * r + e] - l2) : 0.f;
+        for (int r = 0; r < 2; ++r) {
+          const bool seen = !CAUSAL || k0 + 16 * w + g + 8 * r <= q0 + col;
+          st[j][2 * r + e] =
+              q_ok && key_ok[r] && seen ? exp2f(scale2 * st[j][2 * r + e] - l2) : 0.f;
+        }
       }
     uint32_t pa[NT / 2][4];
     to_a(pa, st);  // P rounded to dO's type
@@ -1417,53 +1460,53 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, int bh, int t_pad,
 constexpr size_t f32_tile(int d) { return static_cast<size_t>(BLOCK) * (d + 1); }
 constexpr size_t f32_scores = static_cast<size_t>(BLOCK) * PLD;
 
-template <int D>
+template <int D, bool CAUSAL>
 cudaError_t launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int t_pad, int t_real, float scale,
                        cudaStream_t stream) {
   if (dtype == 0)
-    return launch(flash_fwd_f32<D>, THREADS,
+    return launch(flash_fwd_f32<D, CAUSAL>, THREADS,
                   (3 * f32_tile(D) + f32_scores) * sizeof(float), bh, t_pad, stream,
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<float*>(o),
                   static_cast<float*>(lse), t_pad, t_real, scale);
-  return launch(flash_fwd_wgmma<D>, WG_THREADS, FwdPlan<D>::smem(FwdPlan<D>::K1_STAGES), bh,
+  return launch(flash_fwd_wgmma<D, CAUSAL>, WG_THREADS, FwdPlan<D>::smem(FwdPlan<D>::K1_STAGES), bh,
                 t_pad, stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
                 t_pad, t_real, scale);
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* di, void* dk, void* dv,
                        int bh, int t_pad, int t_real, float scale, cudaStream_t stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dI = static_cast<const float*>(di);
   if (dtype == 0)
-    return launch(flash_dkv_f32<D>, THREADS,
+    return launch(flash_dkv_f32<D, CAUSAL>, THREADS,
                   (4 * f32_tile(D) + 2 * f32_scores + 2 * BLOCK) * sizeof(float), bh, t_pad,
                   stream, static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dout), l, dI,
                   static_cast<float*>(dk), static_cast<float*>(dv), t_pad, t_real, scale);
-  return launch(flash_dkv_wgmma<D>, WG_THREADS, DkvPlan<D>::SMEM, bh, t_pad, stream,
+  return launch(flash_dkv_wgmma<D, CAUSAL>, WG_THREADS, DkvPlan<D>::SMEM, bh, t_pad, stream,
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dI,
                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_pad, t_real, scale);
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di, void* dq, int bh,
                       int t_pad, int t_real, float scale, cudaStream_t stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dI = static_cast<const float*>(di);
   if (dtype == 0)
-    return launch(flash_dq_f32<D>, THREADS,
+    return launch(flash_dq_f32<D, CAUSAL>, THREADS,
                   (4 * f32_tile(D) + f32_scores + 2 * BLOCK) * sizeof(float), bh, t_pad,
                   stream, static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dout), l, dI,
                   static_cast<float*>(dq), t_pad, t_real, scale);
-  return launch(flash_dq_wgmma<D>, WG_THREADS, DqPlan<D>::SMEM, bh, t_pad, stream,
+  return launch(flash_dq_wgmma<D, CAUSAL>, WG_THREADS, DqPlan<D>::SMEM, bh, t_pad, stream,
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dI,
                 static_cast<bf16*>(dq), t_pad, t_real, scale);
@@ -1512,24 +1555,42 @@ cudaError_t launch_onepass(int dtype, const void* q, const void* k, const void* 
     return cudaErrorInvalidValue;                                   \
   }
 
+// launcher<D, causal>(dtype, args...): EAV_DISPATCH with the causal flag.
+#define EAV_DISPATCH_CAUSAL(LAUNCH, causal, dtype, d, ...)                    \
+  {                                                                           \
+    if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;               \
+    switch (d) {                                                              \
+      case 16: return causal ? LAUNCH<16, true>(dtype, __VA_ARGS__)           \
+                             : LAUNCH<16, false>(dtype, __VA_ARGS__);         \
+      case 32: return causal ? LAUNCH<32, true>(dtype, __VA_ARGS__)           \
+                             : LAUNCH<32, false>(dtype, __VA_ARGS__);         \
+      case 64: return causal ? LAUNCH<64, true>(dtype, __VA_ARGS__)           \
+                             : LAUNCH<64, false>(dtype, __VA_ARGS__);         \
+      case 128: return causal ? LAUNCH<128, true>(dtype, __VA_ARGS__)         \
+                              : LAUNCH<128, false>(dtype, __VA_ARGS__);       \
+    }                                                                         \
+    return cudaErrorInvalidValue;                                             \
+  }
+
 cudaError_t fwd(int dtype, int d, const void* q, const void* k, const void* v, void* o,
-                void* lse, int bh, int t_pad, int t_real, float scale,
+                void* lse, int bh, int t_pad, int t_real, float scale, int causal,
                 cudaStream_t stream) {
-  EAV_DISPATCH(launch_fwd, dtype, d, q, k, v, o, lse, bh, t_pad, t_real, scale, stream);
+  EAV_DISPATCH_CAUSAL(launch_fwd, causal, dtype, d, q, k, v, o, lse, bh, t_pad, t_real,
+                      scale, stream);
 }
 
 cudaError_t dkv(int dtype, int d, const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* di, void* dk, void* dv,
-                int bh, int t_pad, int t_real, float scale, cudaStream_t stream) {
-  EAV_DISPATCH(launch_dkv, dtype, d, q, k, v, dout, lse, di, dk, dv, bh, t_pad, t_real,
-               scale, stream);
+                int bh, int t_pad, int t_real, float scale, int causal, cudaStream_t stream) {
+  EAV_DISPATCH_CAUSAL(launch_dkv, causal, dtype, d, q, k, v, dout, lse, di, dk, dv, bh, t_pad,
+                      t_real, scale, stream);
 }
 
 cudaError_t dq(int dtype, int d, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* di, void* dqp, int bh,
-               int t_pad, int t_real, float scale, cudaStream_t stream) {
-  EAV_DISPATCH(launch_dq, dtype, d, q, k, v, dout, lse, di, dqp, bh, t_pad, t_real, scale,
-               stream);
+               int t_pad, int t_real, float scale, int causal, cudaStream_t stream) {
+  EAV_DISPATCH_CAUSAL(launch_dq, causal, dtype, d, q, k, v, dout, lse, di, dqp, bh, t_pad,
+                      t_real, scale, stream);
 }
 
 cudaError_t onepass(int dtype, int d, const void* q, const void* k, const void* v, void* o,
@@ -1544,30 +1605,31 @@ extern "C" {
 
 int eav_flash_fwd(int device, int dtype, int d, const void* q, const void* k,
                   const void* v, void* o, void* lse, int bh, int t_pad, int t_real,
-                  float scale, void* stream) {
+                  float scale, int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(fwd(dtype, d, q, k, v, o, lse, bh, t_pad, t_real, scale,
+  return static_cast<int>(fwd(dtype, d, q, k, v, o, lse, bh, t_pad, t_real, scale, causal,
                               static_cast<cudaStream_t>(stream)));
 }
 
 int eav_flash_dkv(int device, int dtype, int d, const void* q, const void* k,
                   const void* v, const void* dout, const void* lse, const void* di,
-                  void* dk, void* dv, int bh, int t_pad, int t_real, float scale,
+                  void* dk, void* dv, int bh, int t_pad, int t_real, float scale, int causal,
                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(dkv(dtype, d, q, k, v, dout, lse, di, dk, dv, bh, t_pad, t_real,
-                              scale, static_cast<cudaStream_t>(stream)));
+                              scale, causal, static_cast<cudaStream_t>(stream)));
 }
 
 int eav_flash_dq(int device, int dtype, int d, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse, const void* di,
-                 void* dqp, int bh, int t_pad, int t_real, float scale, void* stream) {
+                 void* dqp, int bh, int t_pad, int t_real, float scale, int causal,
+                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(dq(dtype, d, q, k, v, dout, lse, di, dqp, bh, t_pad, t_real,
-                             scale, static_cast<cudaStream_t>(stream)));
+                             scale, causal, static_cast<cudaStream_t>(stream)));
 }
 
 int eav_flash_onepass(int device, int dtype, int d, const void* q, const void* k,

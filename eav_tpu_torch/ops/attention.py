@@ -16,7 +16,15 @@ the JAX package (``eav_tpu/ops/pallas/attention.py`` and
 
 Operands are head-major (BH, T, D) with ``t_real`` <= T real keys; the keys
 past ``t_real`` are masked with -1e30 (exactly zero probability). The kernels
-tile T by 64 and take any length, so the (B, T, H, D) API does not pad.
+tile T by 64 and take any length, so the (B, T, H, D) API does not pad. With
+``causal`` (K1-K3 and their plain versions) query i also sees only keys
+j <= i: the kernels skip the tiles wholly past the diagonal and mask the one
+on it; ``causal=False`` launches the instantiation without the mode, the
+code non-causal callers ran before it. ``flash_attention`` takes K and V with
+fewer heads than Q (grouped-query attention): each K/V head serves H_q / H_kv
+consecutive query heads and is copied out to them in the layout copy
+(``LAYOUT``), so the kernels see one head count; autograd sums the copies'
+gradients back.
 bfloat16 operands go through tensor-core (wgmma) kernels, float32 operands through
 float32 FMA kernels; both accumulate in float32 with a float32 softmax state,
 and P is rounded to V's type before P V and dS to Q's type before the dS
@@ -63,10 +71,10 @@ LAYOUT = "attention.layout"  # the span of the layout copies around the kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "eav_flash_fwd": (_I, _I, _I) + (_VP,) * 5 + (_I, _I, _I, ctypes.c_float, _VP),
-    "eav_flash_dkv": (_I, _I, _I) + (_VP,) * 8 + (_I, _I, _I, ctypes.c_float, _VP),
-    "eav_flash_dq": (_I, _I, _I) + (_VP,) * 7 + (_I, _I, _I, ctypes.c_float, _VP),
+_SIGNATURES = {  # the last int of K1-K3 is the causal flag
+    "eav_flash_fwd": (_I, _I, _I) + (_VP,) * 5 + (_I, _I, _I, ctypes.c_float, _I, _VP),
+    "eav_flash_dkv": (_I, _I, _I) + (_VP,) * 8 + (_I, _I, _I, ctypes.c_float, _I, _VP),
+    "eav_flash_dq": (_I, _I, _I) + (_VP,) * 7 + (_I, _I, _I, ctypes.c_float, _I, _VP),
     "eav_flash_onepass": (_I, _I, _I) + (_VP,) * 5 + (_I, _I, _I, ctypes.c_float, _VP),
 }
 # The float32 K5's carve-up of dynamic shared memory (csrc ``onepass_smem_f32``):
@@ -175,9 +183,11 @@ def _check_rows(bh: int, t_pad: int, *rows: torch.Tensor) -> None:
             raise ValueError(f"lse / di must be float32 ({bh}, {t_pad}), got {r.dtype} {tuple(r.shape)}")
 
 
-def _launch(kernel, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: int) -> None:
+def _launch(kernel, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: int,
+            *flags: int) -> None:
     """Launch ``kernel``'s CUDA symbol (``eav_<name>``) on torch's current
-    stream and count it."""
+    stream and count it; ``flags`` go between the scale and the stream (K1-K3's
+    causal flag)."""
     symbol = f"eav_{kernel.__name__}"
     for t in tensors:
         if not t.is_contiguous():
@@ -191,7 +201,7 @@ def _launch(kernel, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: int) 
     rc = getattr(lib, symbol)(
         q.device.index, _DTYPE_CODES[q.dtype], q.shape[-1],
         *(t.data_ptr() for t in tensors),
-        bh, t_pad, t_real, _scale(q.shape[-1]), stream,
+        bh, t_pad, t_real, _scale(q.shape[-1]), *flags, stream,
     )
     if rc != 0:
         msg = lib.eav_cuda_error_string(rc).decode()
@@ -204,20 +214,25 @@ def _launch(kernel, q: torch.Tensor, tensors, bh: int, t_pad: int, t_real: int) 
 # -----------------------------------------------------------------------------
 
 
-def _key_bias(t_real: int, t_pad: int, device) -> torch.Tensor:
-    """(t_pad,) float32: 0 for real keys, -1e30 for masked ones."""
-    keep = torch.arange(t_pad, device=device) < t_real
+def _key_bias(t_real: int, t_pad: int, device, causal: bool = False) -> torch.Tensor:
+    """float32, 0 for the keys a query sees and -1e30 for masked ones:
+    (t_pad,) over the keys, or with ``causal`` (t_pad, t_pad) over (query,
+    key) pairs, the keys past each query masked too."""
+    keys = torch.arange(t_pad, device=device)
+    keep = keys < t_real
+    if causal:
+        keep = keep & (keys[None, :] <= keys[:, None])
     return torch.where(keep, 0.0, NEG_INF).to(torch.float32)
 
 
-def _scores(q, k, t_real):
+def _scores(q, k, t_real, causal=False):
     s = _scale(q.shape[-1]) * torch.matmul(q.float(), k.float().transpose(1, 2))
-    return s + _key_bias(t_real, k.shape[1], q.device)
+    return s + _key_bias(t_real, k.shape[1], q.device, causal)
 
 
-def flash_fwd_plain(q, k, v, t_real: int):
+def flash_fwd_plain(q, k, v, t_real: int, causal: bool = False):
     """Plain K1: (o in q's dtype, lse (BH, T) float32)."""
-    s = _scores(q, k, t_real)
+    s = _scores(q, k, t_real, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -225,8 +240,8 @@ def flash_fwd_plain(q, k, v, t_real: int):
     return o.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
 
-def _probs_and_dscores(q, k, v, do, lse, di, t_real):
-    p = torch.exp(_scores(q, k, t_real) - lse[..., None])
+def _probs_and_dscores(q, k, v, do, lse, di, t_real, causal=False):
+    p = torch.exp(_scores(q, k, t_real, causal) - lse[..., None])
     dp = torch.matmul(do.float(), v.float().transpose(1, 2))
     ds = (p * (dp - di[..., None])).to(q.dtype).float()
     return p, ds
@@ -245,17 +260,17 @@ def flash_onepass_plain(q, k, v, t_real: int):
     return o.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
 
-def flash_dkv_plain(q, k, v, do, lse, di, t_real: int):
+def flash_dkv_plain(q, k, v, do, lse, di, t_real: int, causal: bool = False):
     """Plain K2: (dk, dv) in k's and v's dtype."""
-    p, ds = _probs_and_dscores(q, k, v, do, lse, di, t_real)
+    p, ds = _probs_and_dscores(q, k, v, do, lse, di, t_real, causal)
     dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
     dk = _scale(q.shape[-1]) * torch.matmul(ds.transpose(1, 2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_dq_plain(q, k, v, do, lse, di, t_real: int):
+def flash_dq_plain(q, k, v, do, lse, di, t_real: int, causal: bool = False):
     """Plain K3: dq in q's dtype."""
-    _, ds = _probs_and_dscores(q, k, v, do, lse, di, t_real)
+    _, ds = _probs_and_dscores(q, k, v, do, lse, di, t_real, causal)
     return (_scale(q.shape[-1]) * torch.matmul(ds, k.float())).to(q.dtype)
 
 
@@ -264,37 +279,37 @@ def flash_dq_plain(q, k, v, do, lse, di, t_real: int):
 # -----------------------------------------------------------------------------
 
 
-def flash_fwd(q, k, v, t_real: int):
+def flash_fwd(q, k, v, t_real: int, causal: bool = False):
     """K1 (replaces ``_flash_kernel``, eav_tpu/ops/pallas/attention.py:73).
     q, k, v (BH, T, D) -> (o (BH, T, D), lse (BH, T) float32)."""
     bh, t_pad, _ = _check_operands(q, k, v)
     if _on_cpu(q, k, v):
-        return flash_fwd_plain(q, k, v, t_real)
+        return flash_fwd_plain(q, k, v, t_real, causal)
     o = torch.empty_like(q)
     lse = torch.empty((bh, t_pad), device=q.device, dtype=torch.float32)
-    _launch(flash_fwd, q, (q, k, v, o, lse), bh, t_pad, t_real)
+    _launch(flash_fwd, q, (q, k, v, o, lse), bh, t_pad, t_real, int(causal))
     return o, lse
 
 
-def flash_dkv(q, k, v, do, lse, di, t_real: int):
+def flash_dkv(q, k, v, do, lse, di, t_real: int, causal: bool = False):
     """K2 (replaces ``_dkv_kernel``, attention.py:113) -> (dk, dv)."""
     bh, t_pad, _ = _check_operands(q, k, v, do)
     _check_rows(bh, t_pad, lse, di)
     if _on_cpu(q, k, v, do, lse, di):
-        return flash_dkv_plain(q, k, v, do, lse, di, t_real)
+        return flash_dkv_plain(q, k, v, do, lse, di, t_real, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(flash_dkv, q, (q, k, v, do, lse, di, dk, dv), bh, t_pad, t_real)
+    _launch(flash_dkv, q, (q, k, v, do, lse, di, dk, dv), bh, t_pad, t_real, int(causal))
     return dk, dv
 
 
-def flash_dq(q, k, v, do, lse, di, t_real: int):
+def flash_dq(q, k, v, do, lse, di, t_real: int, causal: bool = False):
     """K3 (replaces ``_dq_kernel``, attention.py:158) -> dq."""
     bh, t_pad, _ = _check_operands(q, k, v, do)
     _check_rows(bh, t_pad, lse, di)
     if _on_cpu(q, k, v, do, lse, di):
-        return flash_dq_plain(q, k, v, do, lse, di, t_real)
+        return flash_dq_plain(q, k, v, do, lse, di, t_real, causal)
     dq = torch.empty_like(q)
-    _launch(flash_dq, q, (q, k, v, do, lse, di, dq), bh, t_pad, t_real)
+    _launch(flash_dq, q, (q, k, v, do, lse, di, dq), bh, t_pad, t_real, int(causal))
     return dq
 
 
@@ -373,28 +388,29 @@ class FlashAttention(torch.autograd.Function):
     Its ``vmap`` rule folds the stack into B·H (the module docstring)."""
 
     @staticmethod
-    def forward(q, k, v, t_real: int):
-        return flash_fwd(q, k, v, t_real)
+    def forward(q, k, v, t_real: int, causal: bool = False):
+        return flash_fwd(q, k, v, t_real, causal)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, t_real = inputs
+        q, k, v, t_real, *causal = inputs
         o, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.t_real = t_real
+        ctx.t_real, ctx.causal = t_real, bool(causal and causal[0])
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        return (*FlashAttentionBackward.apply(q, k, v, o, lse, do, ctx.t_real), None)
+        grads = FlashAttentionBackward.apply(q, k, v, o, lse, do, ctx.t_real, ctx.causal)
+        return (*grads, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, t_real: int):
+    def vmap(info, in_dims, q, k, v, t_real: int, causal: bool = False):
         s = info.batch_size
         with span(LAYOUT, device=True):
             folded = [_fold(x, d, s) for x, d in zip((q, k, v), in_dims)]
-        o, lse = FlashAttention.apply(*folded, t_real)
+        o, lse = FlashAttention.apply(*folded, t_real, causal)
         return (_unfold(o, s), _unfold(lse, s)), (0, 0)
 
 
@@ -408,12 +424,12 @@ class FlashAttentionBackward(torch.autograd.Function):
     differentiable again."""
 
     @staticmethod
-    def forward(q, k, v, o, lse, do, t_real: int):
+    def forward(q, k, v, o, lse, do, t_real: int, causal: bool = False):
         with span(LAYOUT, device=True):
             do = do.contiguous()
         di = (do.float() * o.float()).sum(dim=-1)
-        dk, dv = flash_dkv(q, k, v, do, lse, di, t_real)
-        return flash_dq(q, k, v, do, lse, di, t_real), dk, dv
+        dk, dv = flash_dkv(q, k, v, do, lse, di, t_real, causal)
+        return flash_dq(q, k, v, do, lse, di, t_real, causal), dk, dv
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -424,30 +440,42 @@ class FlashAttentionBackward(torch.autograd.Function):
         raise RuntimeError("the flash attention backward is not differentiable")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, o, lse, do, t_real: int):
+    def vmap(info, in_dims, q, k, v, o, lse, do, t_real: int, causal: bool = False):
         s = info.batch_size
         with span(LAYOUT, device=True):
             folded = [_fold(x, d, s) for x, d in zip((q, k, v, o, lse, do), in_dims)]
-        grads = FlashAttentionBackward.apply(*folded, t_real)
+        grads = FlashAttentionBackward.apply(*folded, t_real, causal)
         return tuple(_unfold(g, s) for g in grads), (0, 0, 0)
 
 
-def flash_attention_bh(q, k, v, t_real: int):
-    """q, k, v (BH, T_pad, D) with keys past ``t_real`` masked -> o, same layout."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), t_real)[0]
+def flash_attention_bh(q, k, v, t_real: int, causal: bool = False):
+    """q, k, v (BH, T_pad, D) with keys past ``t_real`` (and with ``causal``
+    past each query) masked -> o, same layout."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), t_real,
+                                causal)[0]
 
 
-def _to_bh(x):
+def _to_bh(x, groups: int = 1):
+    """(B, T, H, D) -> contiguous (B·H·groups, T, D), head-major, each head
+    repeated ``groups`` times in a row (one copy either way)."""
     b, t, h, d = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+    x = x.permute(0, 2, 1, 3)
+    if groups > 1:
+        x = x[:, :, None].expand(b, h, groups, t, d)
+    return x.reshape(b * h * groups, t, d).contiguous()
 
 
-def flash_attention(q, k, v):
-    """Multi-head attention in the (B, T, H, D) layout, scale 1/sqrt(D)."""
+def flash_attention(q, k, v, causal: bool = False):
+    """Multi-head attention in the (B, T, H, D) layout, scale 1/sqrt(D);
+    k and v may hold H / G heads (grouped-query attention, the module
+    docstring), and ``causal`` masks the keys past each query."""
     b, t, h, d = q.shape
+    if h % k.shape[2] or k.shape != v.shape:
+        raise ValueError(f"{h} query heads over {k.shape[2]} key and {v.shape[2]} value heads")
+    groups = h // k.shape[2]
     with span(LAYOUT, device=True):
-        q, k, v = _to_bh(q), _to_bh(k), _to_bh(v)
-    o = flash_attention_bh(q, k, v, t)
+        q, k, v = _to_bh(q), _to_bh(k, groups), _to_bh(v, groups)
+    o = flash_attention_bh(q, k, v, t, causal)
     return o.reshape(b, h, t, d).permute(0, 2, 1, 3)
 
 

@@ -128,13 +128,14 @@ def build(name: str) -> Path:
 
 def resource_usage(name: str) -> Dict[str, Tuple[int, int]]:
     """``{"kernel<D>": (registers, spill store bytes)}`` of the built
-    ``csrc/<name>.cu`` from ptxas's report (building it first if needed)."""
+    ``csrc/<name>.cu`` from ptxas's report (building it first if needed); a
+    kernel's causal instantiation is ``"kernel<D,causal>"``."""
     report = build(name).with_suffix(".log").read_text()
     usage, kernel, spills = {}, None, 0
     for line in report.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?\d(flash_\w+?)ILi(\d+)E", line)
+        entry = re.search(r"Compiling entry function '\w*?\d(flash_\w+?)ILi(\d+)E(Lb1E)?", line)
         if entry:
-            kernel = f"{entry.group(1)}<{entry.group(2)}>"
+            kernel = f"{entry.group(1)}<{entry.group(2)}{',causal' if entry.group(3) else ''}>"
         elif kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
             spills = int(m.group(1))
         elif kernel and (m := re.search(r"Used (\d+) registers", line)):

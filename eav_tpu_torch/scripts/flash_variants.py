@@ -106,8 +106,10 @@ def run(names=None) -> dict:
 
     def launch(lib, sym, *tensors, t_real):
         q = tensors[0]
+        causal = () if sym == "eav_flash_onepass" else (0,)  # K1-K3 take the causal flag
         rc = getattr(lib, sym)(q.device.index, 1, q.shape[-1], *(t.data_ptr() for t in tensors),
-                               q.shape[0], q.shape[1], t_real, q.shape[-1] ** -0.5, stream)
+                               q.shape[0], q.shape[1], t_real, q.shape[-1] ** -0.5, *causal,
+                               stream)
         if rc:
             raise RuntimeError(f"{sym} failed ({rc})")
 

@@ -327,9 +327,11 @@ class Trainer:
 
     def _to_device(self, x) -> torch.Tensor:
         """On the trainer's device: uint8 frames stay uint8 (a model with
-        ``preprocess_uint8`` converts them), everything else is float32."""
+        ``preprocess_uint8`` converts them), int64 token ids stay int64 (a
+        model's embedding reads them), everything else is float32."""
         x = torch.as_tensor(x)
-        return x.to(self.device, x.dtype if x.dtype == torch.uint8 else torch.float32)
+        keep = x.dtype in (torch.uint8, torch.int64)
+        return x.to(self.device, x.dtype if keep else torch.float32)
 
     @torch.no_grad()
     def _batched_apply(self, x: torch.Tensor, batch_size: Optional[int], mode: str) -> torch.Tensor:

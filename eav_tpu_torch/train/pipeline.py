@@ -172,6 +172,10 @@ def build_model(preset: PresetConfig, **overrides):
         from eav_tpu_torch.models.fusion import FusionHead
 
         return FusionHead(**kwargs)
+    if name == "lfm2_moe":
+        from eav_tpu_torch.models.lfm2_moe import Lfm2Moe
+
+        return Lfm2Moe(**kwargs)
     raise KeyError(f"unknown model {name!r}")
 
 

@@ -149,7 +149,10 @@ def test_parse_subjects_presets_and_format_summary_equal_jax(capsys):
     assert jax_cli.main(["presets"]) == 0
     want = capsys.readouterr().out.splitlines()
     assert got[: len(want)] == want  # every JAX preset line, as JAX prints it
-    listed = {line.split()[0] for line in got[len(want) + 2:]}
+    keys = got.index(next(line for line in got if line.startswith("modality keys")))
+    port_only = config.PRESETS["lfm2_moe_finetune"]  # then the port's own preset
+    assert got[len(want): keys - 1] == [f"{port_only.name:18s} {port_only.description}"]
+    listed = {line.split()[0] for line in got[keys + 1:]}
     assert listed == set(default_presets())
 
 

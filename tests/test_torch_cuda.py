@@ -40,17 +40,18 @@ TOL = {torch.float32: ((2e-4, 2e-4), (2e-4, 2e-4)),
        torch.bfloat16: ((1e-2, 2e-2), (1e-4, 1e-4))}
 
 
-def _outputs(q, k, v, do, t_real, plain, mask=None):
+def _outputs(q, k, v, do, t_real, plain, mask=None, causal=False):
     """(o, lse, dk, dv, dq) of the kernels or of the plain versions with the
-    keys past ``mask`` (default ``t_real``) masked; the backward is fed the
-    plain forward's lse and rowsum(dO * O) at ``t_real`` either way."""
+    keys past ``mask`` (default ``t_real``) masked, and with ``causal`` the
+    keys past each query; the backward is fed the plain forward's lse and
+    rowsum(dO * O) at ``t_real`` either way."""
     mask = t_real if mask is None else mask
-    o_p, lse_p = A.flash_fwd_plain(q, k, v, t_real)
+    o_p, lse_p = A.flash_fwd_plain(q, k, v, t_real, causal)
     di = (do.float() * o_p.float()).sum(-1)
     fwd, dkv, dq = ((A.flash_fwd_plain, A.flash_dkv_plain, A.flash_dq_plain) if plain
                     else (A.flash_fwd, A.flash_dkv, A.flash_dq))
-    return (*fwd(q, k, v, mask), *dkv(q, k, v, do, lse_p, di, mask),
-            dq(q, k, v, do, lse_p, di, mask))
+    return (*fwd(q, k, v, mask, causal), *dkv(q, k, v, do, lse_p, di, mask, causal),
+            dq(q, k, v, do, lse_p, di, mask, causal))
 
 
 def _tol(dtype, i):
@@ -486,3 +487,169 @@ def test_fits_on_two_threads(cuda):
     for got, want, trainer in zip(results, alone, trainers):
         assert trainer.step_counts == {"eager": 4, "captured": 3, "replayed": 5}
         np.testing.assert_allclose(got.outputs_test, want.outputs_test, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The causal mode of K1-K3, grouped-query attention and LFM2-MoE on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+@pytest.mark.parametrize("t_pad,t_real", [(300, 300), (256, 200), (65, 65), (1214, 1214)])
+def test_causal_kernels_match_plain(cuda, dtype, d, t_pad, t_real):
+    q, k, v, do = _inputs(cuda, dtype, d, t_pad)
+    got = _outputs(q, k, v, do, t_real, plain=False, causal=True)
+    want = _outputs(q, k, v, do, t_real, plain=True, causal=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g.float(), w.float(), **_tol(dtype, i))
+    # a planted fault: the plain versions without the causal mask must fail
+    wrong = _outputs(q, k, v, do, t_real, plain=True)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got[0].float(), wrong[0].float(), **_tol(dtype, 0))
+
+
+def test_causal_kernels_at_8k(cuda):
+    """LFM2-MoE's shape: bf16, D 64, T 8192, B·H 128 (4 rows of 32 heads),
+    the kernels over the whole batch against the plain versions 8 heads at a
+    time (a plain (8, T, T) float32 score block is 2 GB)."""
+    bh, t, d, step = 128, 8192, 64, 8
+    gen = torch.Generator(device=cuda).manual_seed(8192)
+    q, k, v, do = [torch.randn(bh, t, d, generator=gen, device=cuda).to(torch.bfloat16)
+                   for _ in range(4)]
+    plain = [A.flash_fwd_plain(q[i:i + step], k[i:i + step], v[i:i + step], t, True)
+             for i in range(0, bh, step)]
+    o_p, lse_p = torch.cat([o for o, _ in plain]), torch.cat([lse for _, lse in plain])
+    di = (do.float() * o_p.float()).sum(-1)
+    got = (*A.flash_fwd(q, k, v, t, True), *A.flash_dkv(q, k, v, do, lse_p, di, t, True),
+           A.flash_dq(q, k, v, do, lse_p, di, t, True))
+    for i in range(0, bh, step):
+        sl = slice(i, i + step)
+        args = (q[sl], k[sl], v[sl], do[sl], lse_p[sl], di[sl], t, True)
+        want = (o_p[sl], lse_p[sl], *A.flash_dkv_plain(*args), A.flash_dq_plain(*args))
+        for j, (g, w) in enumerate(zip(got, want)):
+            torch.testing.assert_close(g[sl].float(), w.float(), **_tol(torch.bfloat16, j))
+
+
+def test_gqa_kv_gradients_sum_over_the_group(cuda):
+    """Grouped-query attention (32 query heads over 8 K/V heads, D 64,
+    causal): the K/V heads copied out in the layout copy give dK and dV
+    summed over each head's group, equal to the kernels on K and V repeated
+    by hand with the copies' gradients summed (the same kernels, another
+    copy: to an ulp), and to float32 attention (bf16's tolerance)."""
+    b, t, h, g, d = 2, 1024, 32, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(b, t, h, d, generator=gen, device=cuda).bfloat16().requires_grad_()
+    k, v = (torch.randn(b, t, h // g, d, generator=gen, device=cuda).bfloat16().requires_grad_()
+            for _ in range(2))
+    w = torch.randn(b, t, h, d, generator=gen, device=cuda)
+    (A.flash_attention(q, k, v, causal=True).float() * w).sum().backward()
+    got = [x.grad.clone() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    kk, vv = (x.repeat_interleave(g, dim=2) for x in (k, v))
+    (A.flash_attention(q, kk, vv, causal=True).float() * w).sum().backward()
+    for a, b_ in zip(got, (q.grad, k.grad, v.grad)):
+        torch.testing.assert_close(a.float(), b_.float(), atol=1e-2, rtol=1e-2)
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf.repeat_interleave(g, dim=2)) / d ** 0.5
+    s = s.masked_fill(torch.ones(t, t, dtype=torch.bool, device=cuda).triu(1), float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vf.repeat_interleave(g, dim=2))
+    (out * w).sum().backward()
+    for a, b_ in zip(got, (qf.grad, kf.grad, vf.grad)):
+        torch.testing.assert_close(a.float(), b_, atol=5e-2, rtol=5e-2)
+
+
+# sha256 of K1's (o, lse), K2's (dk, dv) and K3's dq, non-causal, at AST's
+# shape (bf16, B·H 96, T 1214, D 64) on seeded inputs, from the kernels built
+# before the causal mode (an NVIDIA H100 80GB HBM3): the non-causal
+# instantiation computes the same bits
+NON_CAUSAL_DIGEST = "5873162581933de63acc2475abdbfa419d4e295bef169113e4053ae1ae184977"
+
+
+def non_causal_digest(device) -> str:
+    import hashlib
+
+    gen = torch.Generator(device=device).manual_seed(1214)
+    q, k, v, do = [torch.randn(96, 1214, 64, generator=gen, device=device).to(torch.bfloat16)
+                   for _ in range(4)]
+    o, lse = A.flash_fwd(q, k, v, 1214)
+    di = (do.float() * o.float()).sum(-1)
+    outs = (o, lse, *A.flash_dkv(q, k, v, do, lse, di, 1214), A.flash_dq(q, k, v, do, lse, di, 1214))
+    digest = hashlib.sha256()
+    for x in outs:
+        digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def test_non_causal_kernels_keep_their_bits(cuda):
+    if "H100" not in torch.cuda.get_device_name(cuda):
+        pytest.skip("the digest was read on an H100")
+    assert non_causal_digest(cuda) == NON_CAUSAL_DIGEST
+
+
+def _lfm2(cuda, held=(0, 1, 2, 3), **kw):
+    from eav_tpu_torch.models.lfm2_moe import Lfm2Moe
+
+    torch.manual_seed(0)
+    cfg = dict(vocab_size=512, hidden_size=256, intermediate_size=512, moe_intermediate_size=128,
+               num_attention_heads=4, num_key_value_heads=2,
+               layer_types=["conv", "conv", "full_attention", "conv"], num_dense_layers=2,
+               num_hidden_layers=4, num_experts=8, num_experts_per_tok=2, norm_eps=1e-5,
+               conv_L_cache=3, rope_parameters={"rope_theta": 1e6}, experts_held=list(held))
+    return Lfm2Moe(**{**cfg, **kw}).to(cuda), cfg
+
+
+def test_lfm2_moe_on_the_card_matches_the_reference(cuda, no_tf32):
+    """LFM2-MoE in bf16 through causal K1-K3 and the grouped GEMM, against
+    ``reference/lfm2_moe.py`` in float32 on the same weights with a
+    nonzero expert bias: logits and the loss to bf16's tolerance (a tie of
+    the router's top-k broken otherwise in bf16 can move a logit row by a
+    few hundredths at these widths)."""
+    import torch.nn.functional as F
+
+    from reference import lfm2_moe as R
+
+    model, cfg = _lfm2(cuda, compute_dtype=torch.bfloat16, stream_dtype=torch.bfloat16)
+    bias = 0.01 * torch.arange(8, device=cuda, dtype=torch.float32)
+    model.set_expert_bias(bias)
+    ids = torch.randint(0, 512, (4, 256), device=cuda)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        got = model(ids)
+        want = R.logits(ids, params, cfg, expert_bias=bias)
+    torch.testing.assert_close(got, want, atol=0.1, rtol=0.05)
+    y = torch.arange(4, device=cuda) % 5
+    torch.testing.assert_close(F.cross_entropy(got, y), F.cross_entropy(want, y), atol=0.02,
+                               rtol=0.02)
+
+
+def test_lfm2_moe_graphed_steps_match_eager_steps(cuda):
+    """Four training steps of LFM2-MoE through the trainer: the graphed
+    trainer (one eager step, a capture, replays) against one kept eager by
+    a no-op hook; the losses to float32's tolerance of one step's bf16
+    rounding (the grouped GEMM's and the scatter-add's atomics may sum in
+    another order), the routed pairs tallied in every step, replays too."""
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.core.optim import make_optimizer
+    from eav_tpu_torch.ops import moe
+    from eav_tpu_torch.train.loop import Trainer
+
+    ids = torch.randint(0, 512, (16, 256), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(3))
+    y = torch.arange(16, device=cuda) % 5
+    losses = []
+    for eager in (True, False):
+        model, _ = _lfm2(cuda, compute_dtype=torch.bfloat16, stream_dtype=torch.bfloat16)
+        if eager:
+            model.register_forward_hook(lambda *a: None)
+        trainer = Trainer(model, get_preset("lfm2_moe_finetune").finetune, device=cuda)
+        opt = make_optimizer(model, trainer.cfg)
+        moe.routed_pairs(reset=True)
+        losses.append(torch.stack([trainer.train_step(opt, ids[4 * i: 4 * i + 4],
+                                                      y[4 * i: 4 * i + 4])[0]
+                                   for i in range(4)]))
+        counts = moe.routed_pairs()[(str(ids.device), 8)]
+        assert int(counts.sum()) == 4 * 4 * 256 * 2 * 2  # steps x rows x T x k x MoE layers
+    assert trainer.step_counts == {"eager": 1, "captured": 1, "replayed": 2}
+    torch.testing.assert_close(losses[1], losses[0], atol=2e-3, rtol=2e-3)

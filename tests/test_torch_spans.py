@@ -150,3 +150,59 @@ def test_a_fit_gives_the_same_bits_with_the_profiler_on_and_off(rng, tmp_path):
     # an evaluation after each epoch, and the frozen cache's two feature passes
     assert names.count("trainer.evaluate") == 3 + 2
     assert names.count("trainer.train_step") == 3 * 2  # 6 rows at batch 4
+
+
+LFM2_SPANS = ("lfm2.forward", "conv.short", "moe.route", "moe.experts", "moe.combine")
+
+
+class _Replayed:
+    """A captured graph's stand-in: its replay runs nothing on the CPU, as
+    a CUDA graph's replay runs no Python."""
+
+    def replay(self):
+        pass
+
+
+def test_lfm2_spans_open_in_an_eager_forward_and_not_in_a_replay(tmp_path):
+    """LFM2-MoE's spans under the profiler: one ``lfm2.forward`` a forward,
+    ``conv.short`` a convolution layer, the three ``moe.*`` an expert
+    layer, in an eager pass (``predict``) and in a step's eager warm-up;
+    none in the steps that replay its graph (the trainer taking itself to
+    be on the card, the capture and the replay's graph stubbed: a
+    capturable AdamW cannot step on the CPU)."""
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.models.lfm2_moe import Lfm2Moe
+    from test_torch_lfm2_moe import TINY
+
+    model = Lfm2Moe(**TINY)
+    trainer = Trainer(model, get_preset("lfm2_moe_finetune").finetune, device="cpu")
+    x, y = torch.randint(0, TINY["vocab_size"], (2, 64)), torch.tensor([0, 1])
+    per_forward = {"lfm2.forward": 1, "conv.short": 3, "moe.route": 2, "moe.experts": 2,
+                   "moe.combine": 2}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.predict(x)
+    spans = _annotations(prof, tmp_path)
+    names = [s[0] for s in spans]
+    assert {n: names.count(n) for n in LFM2_SPANS} == per_forward
+    forward = next(s for s in spans if s[0] == "lfm2.forward")
+    assert all(_inside(s, forward) for s in spans if s[0] in LFM2_SPANS)
+
+    trainer.device = torch.device("cuda")
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, capturable=True)
+    zeros = (torch.zeros(()), torch.zeros((), dtype=torch.long))
+
+    def warm_up(opt, x, y, mode, rows):
+        trainer._apply(x, mode)
+        return zeros
+
+    def capture(graph, mode, rows):
+        graph.graph, graph.outputs = _Replayed(), zeros
+
+    trainer._warm_up, trainer._capture = warm_up, capture
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):  # a warm-up, a capture (and its replay), a replay
+            trainer.train_step(opt, x, y)
+    names = [s[0] for s in _annotations(prof, tmp_path)]
+    assert trainer.step_counts == {"eager": 1, "captured": 1, "replayed": 1}
+    assert names.count("trainer.graph_replay") == 2
+    assert {n: names.count(n) for n in LFM2_SPANS} == per_forward  # the warm-up's alone
