@@ -24,6 +24,18 @@ Phases, each of which fails the run on error:
    fault (the plain versions without the causal mask: an unmasked kernel)
    that the same checks must reject, the launches of those calls, and each
    kernel timed as in phase 3 beside its bound (half the FLOPs);
+3c. MoE row kernels: the expert layer's dispatch, room SwiGLU and combine
+   and their backwards (``csrc/moe.cu``) at LFM2-24B-A2B's shape (32,768
+   tokens, top-4 of 64 experts with 8 held, hidden 2048, width 1536, bf16)
+   on the layer's own routing, against their plain versions, a planted
+   fault (the combine one held row short) that the check must reject, each
+   kernel timed as in phase 3 beside its bound (the held rows' bytes at the
+   memory rate) and beside the room-wide PyTorch passes it replaced; then
+   the cell's path: LFM2-24B-A2B at full width (its first four layers, two
+   of them MoE layers) through the graphed ``Trainer.train_step`` (an eager
+   step, a capture, replays) and a ``predict``, whose row kernel launches
+   must count every MoE layer pass, and each kernel's device time a call in
+   a replayed step under torch.profiler;
 4. model and frontend: full-width AST-base with flash attention against math
    attention on the same weights, resampling and fbank on the card against
    the CPU;
@@ -567,6 +579,236 @@ def check_causal_kernels(card: str, step: int = 8) -> dict:
         + f" (atol, rtol {tol}; LSE {tol_lse}); without the causal mask O, LSE, dK, dV, dQ "
         f"fail on {card}")
     return out
+
+
+# LFM2-24B-A2B's MoE layer (phase 3c): 4 rows of 8,192 tokens, top-4 of 64
+# experts of which 8 are held (8-way expert parallelism), hidden 2048, expert
+# width 1536, bf16
+MOE_TOKENS, MOE_HIDDEN, MOE_FFN, MOE_EXPERTS, MOE_TOP_K = 32768, 2048, 1536, 64, 4
+MOE_HELD = tuple(range(0, MOE_EXPERTS, 8))
+# (atol, rtol) of the row kernels against their plain versions: copies and
+# products at PyTorch's rounding points, or float32 sums of a token's k rows
+# in another order rounded to bf16 (one bf16 step, 2**-8 relative); the
+# weight gradients are float32 dots over 2,048 products in another order
+MOE_TOL = {"rows": (1e-5, 8e-3), "dw": (1e-3, 1e-4)}
+
+
+def moe_bounds(count: int, touched: int, tokens: int = MOE_TOKENS, k: int = MOE_TOP_K,
+               hidden: int = MOE_HIDDEN, ffn: int = MOE_FFN, b: int = 2) -> dict:
+    """Least time (ms) of each row pass at the memory rate: the held rows
+    (``count`` of the room) read and written once, each token row once
+    where the pass reads or writes it (``touched``: tokens with a held
+    pair), the int32 indices and float32 weights once."""
+    nbytes = {
+        "dispatch": (count + touched) * hidden * b + 4 * count,
+        "dispatch_backward": count * hidden * b + tokens * hidden * b + 4 * tokens * k,
+        "room_swiglu": 3 * count * ffn * b,
+        "room_swiglu_backward": 5 * count * ffn * b,
+        "combine": count * hidden * b + tokens * hidden * b + 8 * tokens * k,
+        "combine_backward": touched * hidden * b + 2 * count * hidden * b + 12 * tokens * k,
+    }
+    return {n: v / PEAK_BYTES_PER_S * 1e3 for n, v in nbytes.items()}
+
+
+def check_moe_kernels(card: str) -> dict:
+    """Phase 3c: the MoE layer's row kernels (``csrc/moe.cu``) at
+    LFM2-24B-A2B's shape on a routing of the layer's own router: each
+    against its plain version (``MOE_TOL``), one launch each for those
+    calls, a planted fault (the plain combine one held row short) that the
+    check must reject, and each kernel timed (one call, and a call in a run
+    of 20) beside its bound (``moe_bounds``) and beside the room-wide
+    PyTorch passes it replaced (the gather with its mask, the scatter-add
+    backward, SwiGLU and its backward over the whole room, the mask,
+    weighting and scatter-add, and their backward), timed the same way.
+    Returns {kernel: {max_abs_err, ms, ms_run, bound_ms, room_ms,
+    room_ms_run}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from eav_tpu_torch.ops import build, moe
+
+    t0 = time.perf_counter()
+    build.build("moe")
+    log(f"build of csrc/moe.cu: {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    layer = moe.MoE(MOE_HIDDEN, MOE_FFN, MOE_EXPERTS, MOE_TOP_K, MOE_HELD,
+                    dtype=torch.bfloat16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) / p.shape[-1] ** 0.5)
+    u = torch.randn(MOE_TOKENS, MOE_HIDDEN, generator=gen, device=dev)
+    seen, real = [], layer._experts
+    layer._experts = lambda *args: seen.append(args) or real(*args)
+    with torch.no_grad():
+        layer(u)
+    del layer._experts
+    ub, order, slot, offs, w = seen[0]
+    k, room, n_held = MOE_TOP_K, order.numel(), len(MOE_HELD)
+    count = int(offs[-1])
+    touched = int((slot.view(-1, k) < count).any(1).sum())
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    g, up, dh = rnd(room, MOE_FFN), rnd(room, MOE_FFN), rnd(room, MOE_FFN)
+    y, dx, dout = rnd(room, MOE_HIDDEN), rnd(room, MOE_HIDDEN), rnd(MOE_TOKENS, MOE_HIDDEN)
+    args = {
+        "dispatch": (ub, order, offs, k), "dispatch_backward": (dx, slot, offs, k),
+        "room_swiglu": (g, up, offs), "room_swiglu_backward": (dh, g, up, offs),
+        "combine": (y, w, slot, offs), "combine_backward": (dout, y, w, slot, offs),
+    }
+    rows = {"dispatch": count, "room_swiglu": count, "room_swiglu_backward": count}
+    moe.reset_launches()
+    out = {}
+    for fn in moe.KERNELS:
+        n = fn.__name__
+        got, want = fn(*args[n]), getattr(moe, f"{n}_plain")(*args[n])
+        got, want = ([t] if isinstance(t, torch.Tensor) else list(t) for t in (got, want))
+        if n == "combine_backward":
+            errs = [max_err(got[0][:count], want[0][:count], *MOE_TOL["rows"]),
+                    max_err(got[1], want[1], *MOE_TOL["dw"])]
+        else:
+            errs = [max_err(a[:rows.get(n)], b[:rows.get(n)], *MOE_TOL["rows"])
+                    for a, b in zip(got, want)]
+        out[n] = {"max_abs_err": max(errs)}
+    calls = {fn.__name__: fn.launches for fn in moe.KERNELS}
+    if any(c != 1 for c in calls.values()):
+        raise AssertionError(f"each row kernel should have launched once: {calls}")
+    short = offs.clone()
+    short[-1] -= 1  # the last held row left out
+    must_reject(moe.combine(y, w, slot, offs), moe.combine_plain(y, w, slot, short),
+                *MOE_TOL["rows"], "the combine against one held row short")
+
+    # the room-wide passes each kernel replaced (ops/moe.py before the kernels)
+    tok = order.long() // k
+    valid = (torch.arange(room, device=dev) < count)[:, None]
+    weight = w.reshape(-1)[order.long(), None].to(torch.bfloat16)
+    room_calls = {
+        "dispatch": lambda: torch.where(valid, ub[tok], 0),
+        "dispatch_backward": lambda: torch.zeros_like(ub).index_put_(
+            (tok,), torch.where(valid, dx, 0), accumulate=True),
+        "room_swiglu": lambda: F.silu(g).mul_(up),
+        "room_swiglu_backward": lambda: (torch.ops.aten.silu_backward(dh * up, g),
+                                         F.silu(g).mul_(dh)),
+        "combine": lambda: torch.zeros_like(ub).index_add(
+            0, tok, torch.where(valid, y, 0) * weight),
+        "combine_backward": lambda: (torch.where(valid, dout[tok] * weight, 0),
+                                     (dout[tok] * torch.where(valid, y, 0)).float().sum(-1)),
+    }
+    bounds = moe_bounds(count, touched)
+    for fn in moe.KERNELS:
+        n = fn.__name__
+        call, room_call = (lambda fn=fn, a=args[n]: fn(*a)), room_calls[n]
+        out[n].update(ms=cuda_ms(call), ms_run=cuda_ms_run(call), bound_ms=bounds[n],
+                      room_ms=cuda_ms(room_call), room_ms_run=cuda_ms_run(room_call))
+    log(f"MoE row kernels at {MOE_TOKENS} tokens, top-{k} of {MOE_EXPERTS} with {n_held} held "
+        f"(held count {count} of the room's {room}, {100.0 * count / room:.2f}%; {touched} "
+        f"tokens with a held pair), hidden {MOE_HIDDEN}, width {MOE_FFN}, bf16: " + "; ".join(
+            f"{n} max abs err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms one call, "
+            f"{r['ms_run']:.4f} ms a call in a run of 20, bound {r['bound_ms']:.4f} ms; the "
+            f"room-wide passes it replaced {r['room_ms']:.4f} / {r['room_ms_run']:.4f} ms"
+            for n, r in out.items())
+        + f" (atol, rtol {MOE_TOL}); the combine one held row short fails, on {card}")
+    return out
+
+
+# the cell's path in phase 3c: its first four layers (two dense, then a
+# full-attention and a convolution layer with experts), 8 of 64 experts
+# held, at the cell's batch of 4 rows of 8,192 ids and evaluation batch 8
+MOE_PATH_LAYERS, MOE_PATH_MOE_LAYERS, MOE_PATH_STEPS = 4, 2, 5
+# the kernel each wrapper launches, as the device trace names it
+MOE_KERNEL_NAMES = {"dispatch": "dispatch_kernel", "dispatch_backward": "dispatch_bwd_kernel",
+                    "room_swiglu": "swiglu_kernel", "room_swiglu_backward": "swiglu_bwd_kernel",
+                    "combine": "combine_kernel", "combine_backward": "combine_bwd_kernel"}
+
+
+def run_moe_path(card: str) -> dict:
+    """Phase 3c's path run: LFM2-24B-A2B as the cell builds it
+    (``build_model`` of ``lfm2_moe_finetune``, every width as published,
+    experts 0-7 of 64 held), cut to its first ``MOE_PATH_LAYERS`` layers,
+    through the graphed ``Trainer.train_step`` at the cell's batch: an
+    eager step, a capture, then replays, each step on rows of its own (so
+    a held count of its own), the last replay under torch.profiler; then
+    ``predict`` over 8 rows (one forward without a gradient at the
+    evaluation batch). From ``moe.reset_launches()`` on, each forward
+    kernel must launch twice a MoE layer a step (the checkpoint's
+    recompute) and once a MoE layer in the forward without a gradient,
+    each backward kernel once a MoE layer a step. Returns {kernel:
+    {launches, step_ms}}: ``step_ms``, the kernel's device time a call in
+    the profiled replay (None where the trace holds no device time)."""
+    import re
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.core.optim import make_optimizer
+    from eav_tpu_torch.ops import moe
+    from eav_tpu_torch.train.loop import Trainer
+    from eav_tpu_torch.train.pipeline import build_model
+
+    dev = torch.device("cuda")
+    preset = get_preset("lfm2_moe_finetune")
+    batch, rows, steps = preset.finetune.batch_size, preset.finetune.eval_batch_size, MOE_PATH_STEPS
+    model = build_model(preset, layers=MOE_PATH_LAYERS, experts_held=list(range(8)),
+                        seq_len=8192)
+    moe_layers = sum(isinstance(m, moe.MoE) for m in model.modules())
+    if moe_layers != MOE_PATH_MOE_LAYERS:
+        raise AssertionError(f"{moe_layers} MoE layers in the first {MOE_PATH_LAYERS} layers")
+    trainer = Trainer(model, preset.finetune, device=dev)
+    opt = make_optimizer(model, trainer.cfg)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    ids = torch.randint(0, 65536, (batch * steps + rows, 8192), generator=gen, device=dev)
+    y = torch.arange(batch * steps, device=dev) % 5
+    moe.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps - 1):
+        trainer.train_step(opt, ids[batch * i: batch * (i + 1)], y[batch * i: batch * (i + 1)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    i = steps - 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss, _ = trainer.train_step(opt, ids[batch * i: batch * (i + 1)],
+                                     y[batch * i: batch * (i + 1)])
+        torch.cuda.synchronize()
+    logits = trainer.predict(ids[batch * steps:])
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in moe.KERNELS}
+    want = {n: moe_layers * (steps if n.endswith("_backward") else 2 * steps + 1)
+            for n in launches}
+    counts = dict(trainer.step_counts)
+    if counts != {"eager": 1, "captured": 1, "replayed": steps - 2}:
+        raise AssertionError(f"the steps ran as {counts}, not eager, captured, replayed")
+    if launches != want:
+        raise AssertionError(f"row kernel launches {launches}, {want} expected: a MoE layer "
+                             f"pass went round the kernels")
+    if not (torch.isfinite(loss).item() and np.isfinite(logits).all()):
+        raise AssertionError(f"loss {loss.item()}, logits finite {np.isfinite(logits).all()}")
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    out = {}
+    for n, kernel in MOE_KERNEL_NAMES.items():
+        hits = [e for e in events if re.search(rf"\b{kernel}\b", e.key)]
+        calls = sum(e.count for e in hits)
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        out[n] = {"launches": launches[n], "step_ms": ms / calls if calls and ms else None,
+                  "step_calls": calls}
+    log(f"the cell's path, LFM2-24B-A2B at full width, {MOE_PATH_LAYERS} layers ({moe_layers} "
+        f"MoE), experts 0-7 of 64, bf16: {steps} steps of {batch} x 8192 ids ({counts}; the "
+        f"first {steps - 1} in {wall:.1f} s) and a predict of {rows} rows; loss "
+        f"{loss.item():.4f}; row kernel launches {launches} = {want} expected (2 a MoE layer "
+        f"a step for each forward kernel, 1 for each backward, 1 a MoE layer in the forward "
+        f"without a gradient); in the profiled replay, ms a call (calls): " + ", ".join(
+            f"{n} {'not measured' if r['step_ms'] is None else round(r['step_ms'], 4)} "
+            f"({r['step_calls']})" for n, r in out.items()) + f" on {card}")
+    return out
+
+
+MOE_KERNEL_SOURCE = ("eav_tpu_torch/csrc/moe.cu",
+                     "none: the room-wide PyTorch passes of ops/moe.py's expert layer")
 
 
 LIBRARY_CALL = {  # what library_ms times for each kernel
@@ -3340,6 +3582,10 @@ def main() -> int:
     mark("3. kernels")
     causal = check_causal_kernels(card)
     mark("3b. causal kernels")
+    moe_kernels = check_moe_kernels(card)
+    for n, r in run_moe_path(card).items():
+        moe_kernels[n].update(r)
+    mark("3c. MoE row kernels")
     check_model_and_frontend()
     mark("4. model and frontend")
 
@@ -3442,6 +3688,9 @@ def main() -> int:
             "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": lib,
             "library_ms_run": lib_run, "causal": causal.get(n),
         })
+    for n, r in moe_kernels.items():
+        kernels.append({"name": n, "route": "cuda", "source": MOE_KERNEL_SOURCE[0],
+                        "replaces": MOE_KERNEL_SOURCE[1], "bound_by": "bytes", **r})
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

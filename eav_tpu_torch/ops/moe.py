@@ -18,33 +18,42 @@ between ranks is not here. Nothing stands in for the experts it lacks.
 
 The computation keeps fixed shapes and reads nothing back to the host, so a
 training step stays one CUDA graph: the N·k pairs are sorted by held expert
-(pairs on other experts last), the per-expert ends kept on the device
-(``offs``), and the held pairs, however many, go through one grouped product
-a projection (``grouped_mm``: ``torch._grouped_mm`` on the card, which
-computes the rows below ``offs[-1]`` only). The room is N·k rows, so no
-token is dropped whatever the balance. Rows past the held pairs hold no
-result: they are masked (``torch.where``, whose gradient is nought there)
-on the way in and on the way out, so that nothing of theirs reaches a token
-or the router. (A gather from a zero row past the tokens would spare the
-first mask, but its backward accumulates the room's other pairs, seven in
-eight, into that one row one by one: 0.9 s a step on the H100.) The
-combine is a weighted scatter-add of the rows into their tokens. While a
-gradient is taken, the gather, the grouped products and the combine are
-recomputed in the backward (``torch.utils.checkpoint``): the room's N·k
-rows would otherwise keep five (N·k, width) tensors a layer for the
-backward, 2.3 GB a layer at 32,768 tokens, for a recompute of about a
-twentieth of the step's FLOPs.
+(pairs on other experts last) into a room of N·k rows, so no token is
+dropped whatever the balance; the per-expert ends stay on the device
+(``offs``; the held count is ``offs[-1]``), and the held pairs, however
+many, go through one grouped product a projection (``grouped_mm``:
+``torch._grouped_mm`` on the card, which computes the rows below
+``offs[-1]`` only). The row passes over the room stop at the held count too,
+which they read on the device (``csrc/moe.cu``): ``dispatch`` copies each
+held pair's token into its room row, ``room_swiglu`` gates the held rows,
+and ``combine`` sums each token's weighted held rows into it, in float32 and
+written once. Their backwards are kernels too: a per-token gather-reduce of
+the rows' gradients (no atomics), SwiGLU's, and the combine's row gradients
+with each pair's weight gradient (zero for pairs not held). Rows at or past
+the held count are neither read nor written by any of them, so nothing of
+theirs reaches a token or the router. ``order`` (int32) is the pair in each
+room row and ``slot`` (int32) its inverse, the room row of each pair. Each
+kernel has a plain PyTorch version (``*_plain``) that the wrappers run for
+CPU tensors; a CUDA tensor always takes the kernel. Each wrapper counts its
+launches in ``.launches`` (``KERNELS``; a CUDA graph's replays counted as
+``ops/attention.tally_launches`` says). While a gradient is taken, the
+dispatch, the grouped products, the SwiGLU and the combine are recomputed in
+the backward (``torch.utils.checkpoint``): the room's N·k rows would
+otherwise keep five (N·k, width) tensors a layer for the backward, 2.3 GB a
+layer at 32,768 tokens, for a recompute of about a twentieth of the step's
+FLOPs.
 
 Spans (``utils/profiling.span``, device-timed when not capturing):
-``moe.route`` (scores, top-k and the grouping), ``moe.experts`` (the grouped
-products) and ``moe.combine`` (the weighted scatter-add). The counter: a
-device-resident tally of the pairs routed to each expert, held or not,
-updated inside the step (a replayed graph counts too) and read by
-``routed_pairs`` off the hot path.
+``moe.route`` (scores, top-k and the grouping), ``moe.experts`` (the
+dispatch, the grouped products and the room's SwiGLU) and ``moe.combine``
+(the weighted sum into the tokens). The counter: a device-resident tally of
+the pairs routed to each expert, held or not, updated inside the step (a
+replayed graph counts too) and read by ``routed_pairs`` off the hot path.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Dict, Optional, Sequence
 
@@ -53,6 +62,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from eav_tpu_torch.ops import build
+from eav_tpu_torch.ops.attention import _count
 from eav_tpu_torch.utils.profiling import span
 
 ROUTE, EXPERTS, COMBINE = "moe.route", "moe.experts", "moe.combine"
@@ -117,6 +128,291 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Te
     return torch._grouped_mm(x, w, offs=offs)
 
 
+# -----------------------------------------------------------------------------
+# The room's row passes: kernels (csrc/moe.cu) and their plain versions
+# -----------------------------------------------------------------------------
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {  # device, dtype, pointers and sizes, the stream
+    "eav_moe_dispatch": (_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP),
+    "eav_moe_dispatch_bwd": (_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP),
+    "eav_moe_swiglu": (_I, _I, _VP, _VP, _VP, _I, _I, _I, _VP, _VP),
+    "eav_moe_swiglu_bwd": (_I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP),
+    "eav_moe_combine": (_I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP),
+    "eav_moe_combine_bwd": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP),
+}
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with typed entry points."""
+    global _lib
+    with build.LOCK:
+        if _lib is None:
+            lib = build.load("moe")
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.eav_moe_error_string.argtypes = (ctypes.c_int,)
+            lib.eav_moe_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version), False for tensors on one CUDA
+    device (kernel); raises for anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type not in ("cpu", "cuda"):
+        raise ValueError(f"the MoE row passes take CPU or one CUDA device, got {devices}")
+    return next(iter(devices)).type == "cpu"
+
+
+def _check(rows: torch.Tensor, *same: torch.Tensor) -> None:
+    """(rows, width) row tensors of one float type, rows of 16-byte multiples."""
+    if rows.dtype not in _DTYPE_CODES or rows.dim() != 2:
+        raise ValueError(f"expected (rows, width) float32 or bfloat16, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    if rows.shape[1] * rows.element_size() % 16:
+        raise ValueError(f"a row of {rows.shape[1]} {rows.dtype} is not a multiple of 16 bytes")
+    for t in same:
+        if t.dtype != rows.dtype or t.dim() != 2 or t.shape[1] != rows.shape[1]:
+            raise ValueError("row operands must share type and width")
+
+
+def _check_room(offs: torch.Tensor, *indices: torch.Tensor) -> None:
+    if offs.dtype != torch.int32 or offs.numel() < 1 or any(
+            t.dtype != torch.int32 for t in indices):
+        raise ValueError("offs (not empty), order and slot must be int32")
+
+
+def _check_weights(w: torch.Tensor, slot: torch.Tensor) -> None:
+    if w.dtype != torch.float32 or w.dim() != 2 or w.numel() != slot.numel():
+        raise ValueError("the pairs' weights must be float32 (N, k), one a pair")
+
+
+def _launch(wrapper, symbol: str, ins, sizes, outs) -> None:
+    """Launch ``symbol`` on torch's current stream with the pointers of
+    ``ins``, then ``sizes``, then the pointers of ``outs``, in the row type of
+    ``ins[0]``; count it on ``wrapper``."""
+    for t in (*ins, *outs):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{symbol}: operands must be contiguous and 16-byte aligned")
+    lib = _library()
+    dev = ins[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(lib, symbol)(dev.index, _DTYPE_CODES[ins[0].dtype],
+                              *(t.data_ptr() for t in ins), *sizes,
+                              *(t.data_ptr() for t in outs), stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: {lib.eav_moe_error_string(rc).decode()} "
+                           f"({rc})")
+    _count(wrapper, stream)
+
+
+def room_empty(rows: int, width: int, like: torch.Tensor) -> torch.Tensor:
+    """A room-sized output, (rows, width) of ``like``'s type and device, left
+    as allocated: the rows past the held count are never written."""
+    return like.new_empty(rows, width)
+
+
+def _held(offs: torch.Tensor) -> int:
+    return int(offs[-1])
+
+
+def dispatch_plain(u, order, offs, k: int):
+    x = room_empty(order.numel(), u.shape[1], u)
+    c = _held(offs)
+    x[:c] = u[order[:c].long() // k]
+    return x
+
+
+def dispatch_backward_plain(dx, slot, offs, k: int):
+    s = slot.long().view(-1, k)
+    held = s < _held(offs)
+    rows = dx.new_zeros(*s.shape, dx.shape[1], dtype=torch.float32)
+    rows[held] = dx[s[held]].float()
+    return rows.sum(1).to(dx.dtype)
+
+
+def room_swiglu_plain(g, up, offs):
+    h, c = room_empty(*g.shape, g), _held(offs)
+    h[:c] = F.silu(g[:c]) * up[:c]
+    return h
+
+
+def room_swiglu_backward_plain(dh, g, up, offs):
+    dg, dup, c = room_empty(*g.shape, g), room_empty(*g.shape, g), _held(offs)
+    dg[:c] = torch.ops.aten.silu_backward(dh[:c] * up[:c], g[:c])
+    dup[:c] = F.silu(g[:c]) * dh[:c]
+    return dg, dup
+
+
+def combine_plain(y, w, slot, offs):
+    s = slot.long().view(w.shape)
+    held = s < _held(offs)
+    rows = y.new_zeros(*s.shape, y.shape[1], dtype=torch.float32)
+    rows[held] = y[s[held]].float() * w[held][:, None]
+    return rows.sum(1).to(y.dtype)
+
+
+def combine_backward_plain(dout, y, w, slot, offs):
+    s = slot.long().view(w.shape)
+    held = s < _held(offs)
+    d = dout.float()[:, None, :].expand(*s.shape, dout.shape[1])[held]
+    dy, dw = room_empty(*y.shape, y), torch.zeros_like(w)
+    dy[s[held]] = (w[held][:, None] * d).to(y.dtype)
+    dw[held] = (y[s[held]].float() * d).sum(-1)
+    return dy, dw
+
+
+def dispatch(u, order, offs, k: int):
+    """u (N, width), order (N·k,) int32, offs (held,) int32 -> x (N·k,
+    width): x[r] = u[order[r] // k] for the room rows r < offs[-1]."""
+    _check(u)
+    _check_room(offs, order)
+    if _on_cpu(u, order, offs):
+        return dispatch_plain(u, order, offs, k)
+    x = room_empty(order.numel(), u.shape[1], u)
+    _launch(dispatch, "eav_moe_dispatch", (u, order, offs),
+            (offs.numel(), k, order.numel(), u.shape[1]), (x,))
+    return x
+
+
+def dispatch_backward(dx, slot, offs, k: int):
+    """dx (N·k, width), slot (N·k,) int32 -> du (N, width): each token's
+    held pairs' rows summed in float32, zero where it has none."""
+    _check(dx)
+    _check_room(offs, slot)
+    if _on_cpu(dx, slot, offs):
+        return dispatch_backward_plain(dx, slot, offs, k)
+    tokens = slot.numel() // k
+    du = dx.new_empty(tokens, dx.shape[1])
+    _launch(dispatch_backward, "eav_moe_dispatch_bwd", (dx, slot, offs),
+            (offs.numel(), k, tokens, dx.shape[1]), (du,))
+    return du
+
+
+def room_swiglu(g, up, offs):
+    """silu(g) * up over the room rows below offs[-1] (N·k, ffn)."""
+    _check(g, up)
+    _check_room(offs)
+    if _on_cpu(g, up, offs):
+        return room_swiglu_plain(g, up, offs)
+    h = room_empty(*g.shape, g)
+    _launch(room_swiglu, "eav_moe_swiglu", (g, up, offs), (offs.numel(), *g.shape), (h,))
+    return h
+
+
+def room_swiglu_backward(dh, g, up, offs):
+    """(dg, dup) of ``room_swiglu`` over the rows below offs[-1]."""
+    _check(dh, g, up)
+    _check_room(offs)
+    if _on_cpu(dh, g, up, offs):
+        return room_swiglu_backward_plain(dh, g, up, offs)
+    dg, dup = room_empty(*g.shape, g), room_empty(*g.shape, g)
+    _launch(room_swiglu_backward, "eav_moe_swiglu_bwd", (dh, g, up, offs),
+            (offs.numel(), *g.shape), (dg, dup))
+    return dg, dup
+
+
+def combine(y, w, slot, offs):
+    """y (N·k, width), w (N, k) float32, slot (N·k,) int32 -> out (N, width)
+    in y's type: out[n] = sum_j w[n, j] y[slot[n·k + j]] over the held pairs,
+    in float32, zero for a token with none."""
+    _check(y)
+    _check_room(offs, slot)
+    _check_weights(w, slot)
+    if _on_cpu(y, w, slot, offs):
+        return combine_plain(y, w, slot, offs)
+    out = y.new_empty(w.shape[0], y.shape[1])
+    _launch(combine, "eav_moe_combine", (y, w, slot, offs),
+            (offs.numel(), w.shape[1], w.shape[0], y.shape[1]), (out,))
+    return out
+
+
+def combine_backward(dout, y, w, slot, offs):
+    """(dy, dw) of ``combine``: dy[slot] = w dout[n] for the held pairs
+    (rows past offs[-1] unwritten), dw[n, j] = <y[slot], dout[n]> for the
+    held pairs and 0 for the others."""
+    _check(dout, y)
+    _check_room(offs, slot)
+    _check_weights(w, slot)
+    if _on_cpu(dout, y, w, slot, offs):
+        return combine_backward_plain(dout, y, w, slot, offs)
+    dy, dw = room_empty(*y.shape, y), torch.empty_like(w)
+    _launch(combine_backward, "eav_moe_combine_bwd", (dout, y, w, slot, offs),
+            (offs.numel(), w.shape[1], w.shape[0], y.shape[1]), (dy, dw))
+    return dy, dw
+
+
+KERNELS = (dispatch, dispatch_backward, room_swiglu, room_swiglu_backward, combine,
+           combine_backward)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launches() -> None:
+    with build.LOCK:
+        for fn in KERNELS:
+            fn.launches = 0
+
+
+class Dispatch(torch.autograd.Function):
+    """``dispatch`` with ``dispatch_backward`` as its gradient."""
+
+    @staticmethod
+    def forward(u, order, slot, offs, k: int):
+        return dispatch(u, order, offs, k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, slot, offs, ctx.k = inputs
+        ctx.save_for_backward(slot, offs)
+
+    @staticmethod
+    def backward(ctx, dx):
+        slot, offs = ctx.saved_tensors
+        return dispatch_backward(dx.contiguous(), slot, offs, ctx.k), None, None, None, None
+
+
+class RoomSwiGLU(torch.autograd.Function):
+    """``room_swiglu`` with ``room_swiglu_backward`` as its gradient."""
+
+    @staticmethod
+    def forward(g, up, offs):
+        return room_swiglu(g, up, offs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dh):
+        g, up, offs = ctx.saved_tensors
+        return (*room_swiglu_backward(dh.contiguous(), g, up, offs), None)
+
+
+class Combine(torch.autograd.Function):
+    """``combine`` with ``combine_backward`` as its gradient (y's and w's)."""
+
+    @staticmethod
+    def forward(y, w, slot, offs):
+        return combine(y, w, slot, offs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, w, slot, offs = ctx.saved_tensors
+        return (*combine_backward(dout.contiguous(), y, w, slot, offs), None, None)
+
+
 class MoE(nn.Module):
     """The expert layer above, holding ``experts_held`` (expert ids, all of
     them when None). Parameters: ``gate.weight`` (E, hidden), the router,
@@ -167,7 +463,6 @@ class MoE(nn.Module):
         router reads ``u`` in float32."""
         shape, n_held = u.shape, self.w1.shape[0]
         u = u.reshape(-1, shape[-1])
-        k = self.top_k
         dtype = self.dtype or u.dtype
         with span(ROUTE, device=True):
             idx, w = self.route(u)
@@ -180,26 +475,25 @@ class MoE(nn.Module):
             counts = torch.zeros(n_held + 1, dtype=torch.int64, device=u.device)
             counts.scatter_add_(0, local, torch.ones_like(local))
             offs = counts[:n_held].cumsum(0).to(torch.int32)  # each held expert's end
-            tok = order // k
-            valid = (local[order] < n_held)[:, None]
-            weight = w.reshape(-1)[order, None]
-        args = (u.to(dtype), tok, valid, offs, weight)
+            rows = torch.arange(order.numel(), dtype=torch.int32, device=u.device)
+            slot = torch.empty_like(rows).scatter_(0, order, rows)  # each pair's room row
+            order = order.to(torch.int32)
+        args = (u.to(dtype), order, slot, offs, w)
         if torch.is_grad_enabled():
             out = checkpoint(self._experts, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             out = self._experts(*args)
         return out.reshape(shape)
 
-    def _experts(self, u: torch.Tensor, tok: torch.Tensor, valid: torch.Tensor,
-                 offs: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    def _experts(self, u: torch.Tensor, order: torch.Tensor, slot: torch.Tensor,
+                 offs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """The held pairs' rows through the grouped products, weighted and
-        added into their tokens: (N, hidden) in ``u``'s dtype."""
+        summed into their tokens: (N, hidden) in ``u``'s dtype."""
         dtype = u.dtype
         with span(EXPERTS, device=True):
-            x = torch.where(valid, u[tok], 0)
+            x = Dispatch.apply(u, order, slot, offs, self.top_k)
             g = grouped_mm(x, self.w1.to(dtype).transpose(1, 2), offs)
             up = grouped_mm(x, self.w3.to(dtype).transpose(1, 2), offs)
-            y = grouped_mm(swiglu(g, up), self.w2.to(dtype).transpose(1, 2), offs)
+            y = grouped_mm(RoomSwiGLU.apply(g, up, offs), self.w2.to(dtype).transpose(1, 2), offs)
         with span(COMBINE, device=True):
-            y = torch.where(valid, y, 0) * weight.to(dtype)
-            return torch.zeros_like(u).index_add(0, tok, y)
+            return Combine.apply(y, w, slot, offs)

@@ -3,8 +3,9 @@ plain versions on the card, a fit that repeats bit for bit on the card under
 the trainer's deterministic mode, and the fifth slice on the card: the
 scnn180 chain against float64 on the CPU, ResNetAttn's forward against the
 CPU, an HF checkpoint round trip, the kernels under ``torch.func.vmap``
-(one launch for a stack), and the trainer's steps replayed as CUDA graphs
-against the same steps run eagerly.
+(one launch for a stack), the trainer's steps replayed as CUDA graphs
+against the same steps run eagerly, and the MoE layer's row kernels at
+LFM2-24B-A2B's shape.
 
 These need a GPU with the CUDA toolkit (the kernels are built with nvcc at
 first use), so they carry the ``cuda`` marker and skip elsewhere. Run them on
@@ -653,3 +654,217 @@ def test_lfm2_moe_graphed_steps_match_eager_steps(cuda):
         assert int(counts.sum()) == 4 * 4 * 256 * 2 * 2  # steps x rows x T x k x MoE layers
     assert trainer.step_counts == {"eager": 1, "captured": 1, "replayed": 2}
     torch.testing.assert_close(losses[1], losses[0], atol=2e-3, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer's row passes (csrc/moe.cu) at LFM2-24B-A2B's shape: 32,768
+# tokens (4 rows of 8,192), top-4 of 64 experts with 8 held (a room of
+# 131,072 rows, about an eighth held), hidden 2048, expert width 1536, bf16.
+# ---------------------------------------------------------------------------
+
+MOE_SHAPE = dict(tokens=32768, hidden=2048, ffn=1536, experts=64, top_k=4)
+MOE_HELD = list(range(0, 64, 8))
+
+
+def _moe_layer(cuda, seed=0):
+    """The cell's MoE layer, bf16 products, weights N(0, 1/fan_in), the
+    router N(0, 1/hidden)."""
+    from eav_tpu_torch.ops import moe
+
+    s = MOE_SHAPE
+    layer = moe.MoE(s["hidden"], s["ffn"], s["experts"], s["top_k"], MOE_HELD,
+                    dtype=torch.bfloat16).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=cuda) / p.shape[-1] ** 0.5)
+    return layer
+
+
+def _moe_tokens(cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    u = torch.randn(MOE_SHAPE["tokens"], MOE_SHAPE["hidden"], generator=gen, device=cuda)
+    return u, torch.randn(u.shape, generator=gen, device=cuda)
+
+
+def _moe_room(layer, u):
+    """The layer's routing of ``u`` as its forward builds it: (order, slot,
+    offs, w), recorded from the arguments of its ``_experts``."""
+    seen, real = [], layer._experts
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    layer._experts = record
+    with torch.no_grad():
+        layer(u)
+    del layer._experts  # the method again
+    return seen[0][1:]
+
+
+def _moe_step(layer, u, dout):
+    """Output and the gradients of u, w1, w3, w2 and the router."""
+    x = u.clone().requires_grad_(True)
+    out = layer(x)
+    params = [layer.w1, layer.w3, layer.w2, layer.gate.weight]
+    return [out.detach(), *torch.autograd.grad(out, [x, *params], dout)]
+
+
+def test_moe_row_kernels_match_plain(cuda):
+    """Each row pass and its backward at the cell's shape against its plain
+    version: the copies and the bf16 products at their PyTorch rounding
+    points (dispatch, SwiGLU, dy) exactly, up to silu's exp; sums of a
+    token's k rows in float32 in another order, rounded to bf16, to one
+    bf16 step (2**-8 relative, so rtol 8e-3); the weight gradients, float32
+    dots over 2,048 products in another order, to 1e-4 relative and 1e-3
+    absolute. The launches are counted, and every kernel output is exactly
+    the same on a second call."""
+    from eav_tpu_torch.ops import moe
+
+    layer = _moe_layer(cuda)
+    u, dout = _moe_tokens(cuda, 1)
+    order, slot, offs, w = _moe_room(layer, u)
+    count, room = int(offs[-1]), order.numel()
+    assert 0.1 * room < count < 0.15 * room  # about an eighth held
+    k, ub = layer.top_k, u.to(torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    g, up, dh = (torch.randn(room, MOE_SHAPE["ffn"], generator=gen, device=cuda)
+                 .to(torch.bfloat16) for _ in range(3))
+    y, dx = (torch.randn(room, MOE_SHAPE["hidden"], generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    db = dout.to(torch.bfloat16)
+    exact, one_step, dots = dict(atol=0, rtol=0), dict(atol=1e-5, rtol=8e-3), \
+        dict(atol=1e-3, rtol=1e-4)
+    calls = [  # (kernel call, plain call, rows compared, tolerance)
+        (lambda: moe.dispatch(ub, order, offs, k), lambda: moe.dispatch_plain(ub, order, offs, k),
+         count, exact),
+        (lambda: moe.dispatch_backward(dx, slot, offs, k),
+         lambda: moe.dispatch_backward_plain(dx, slot, offs, k), None, one_step),
+        (lambda: moe.room_swiglu(g, up, offs), lambda: moe.room_swiglu_plain(g, up, offs),
+         count, one_step),
+        (lambda: moe.room_swiglu_backward(dh, g, up, offs),
+         lambda: moe.room_swiglu_backward_plain(dh, g, up, offs), count, one_step),
+        (lambda: moe.combine(y, w, slot, offs), lambda: moe.combine_plain(y, w, slot, offs),
+         None, one_step),
+        (lambda: moe.combine_backward(db, y, w, slot, offs),
+         lambda: moe.combine_backward_plain(db, y, w, slot, offs), None, None),
+    ]
+    moe.reset_launches()
+    for kernel, plain, rows, tol in calls:
+        got, want, again = kernel(), plain(), kernel()
+        got, want, again = ([t] if isinstance(t, torch.Tensor) else list(t)
+                            for t in (got, want, again))
+        if tol is None:  # combine's backward: dy rows below the count, dw whole
+            got, want, again = ([t[0][:count], t[1]] for t in (got, want, again))
+            tols = [exact, dots]
+        else:
+            got, want, again = ([x[:rows] if rows is not None else x for x in t]
+                                for t in (got, want, again))
+            tols = [tol] * len(got)
+        for a, b, c, t in zip(got, want, again, tols):
+            torch.testing.assert_close(a.float(), b.float(), **t)
+            assert torch.equal(a, c)
+    assert [fn.launches for fn in moe.KERNELS] == [2] * 6
+
+
+def _poison(monkeypatch):
+    """Every room tensor's rows past the held count NaN before each pass:
+    the kernels' room outputs allocated as NaN, and the grouped products'
+    outputs and their inputs' gradients given NaN tails."""
+    from eav_tpu_torch.ops import moe
+
+    def tail(t, count):
+        with torch.no_grad():
+            t[count:] = float("nan")
+        return t
+
+    def grouped_mm(x, w, offs):
+        count = int(offs[-1])
+        if x.requires_grad:
+            x.register_hook(lambda grad: tail(grad.clone(), count))
+        return tail(torch._grouped_mm(x, w, offs=offs), count)
+
+    monkeypatch.setattr(moe, "room_empty", lambda rows, cols, like: like.new_full(
+        (rows, cols), float("nan")))
+    monkeypatch.setattr(moe, "grouped_mm", grouped_mm)
+
+
+def test_moe_layer_reads_nothing_past_the_held_count(cuda, monkeypatch):
+    """The cell's MoE layer, forward and backward, with every room tensor's
+    tail NaN before each pass: the output and the gradients of u, w1, w3,
+    w2 and the router are finite and bit for bit those of a run without the
+    NaN (the same kernels on the same rows); two runs are bit for bit
+    equal."""
+    layer = _moe_layer(cuda)
+    u, dout = _moe_tokens(cuda, 3)
+    clean, again = _moe_step(layer, u, dout), _moe_step(layer, u, dout)
+    _poison(monkeypatch)
+    poisoned = _moe_step(layer, u, dout)
+    for a, b, c in zip(poisoned, clean, again):
+        assert bool(a.isfinite().all())
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+def test_moe_layer_replays_each_batch_with_its_own_count(cuda):
+    """The cell's MoE layer, forward and backward, captured once as a CUDA
+    graph and replayed on two batches whose held counts differ: each
+    replay's output and gradients are bit for bit the eager step's on the
+    same batch (the same kernels, each reading that batch's count from the
+    device), and the launches captured count at each replay."""
+    from eav_tpu_torch.ops import attention as A
+    from eav_tpu_torch.ops import moe
+
+    layer = _moe_layer(cuda)
+    batches = [_moe_tokens(cuda, seed) for seed in (4, 5)]
+    counts = [int(_moe_room(layer, u)[2][-1]) for u, _ in batches]
+    assert counts[0] != counts[1]
+    eager = [_moe_step(layer, u, dout) for u, dout in batches]
+    static_u, static_dout = (t.clone() for t in batches[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _moe_step(layer, static_u, static_dout)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with A.tally_launches(side) as tally, torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            outs = _moe_step(layer, static_u, static_dout)
+    assert tally == {moe.dispatch: 2, moe.room_swiglu: 2, moe.combine: 2,
+                     moe.dispatch_backward: 1, moe.room_swiglu_backward: 1,
+                     moe.combine_backward: 1}  # the checkpoint recomputes the forward
+    moe.reset_launches()
+    for (u, dout), want in zip(batches, eager):
+        static_u.copy_(u)
+        static_dout.copy_(dout)
+        graph.replay()
+        A.add_launches(tally)
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+    assert moe.dispatch.launches == 4 and moe.combine_backward.launches == 2
+
+
+def test_lfm2_moe_trainer_steps_launch_the_row_kernels(cuda):
+    """Four steps of the tiny LFM2-MoE through the graphed trainer (eager,
+    captured, two replays): every MoE layer's pass went through the row
+    kernels, forward twice a step (the checkpoint's recompute) and backward
+    once, replays counted."""
+    from eav_tpu_torch.core.config import get_preset
+    from eav_tpu_torch.core.optim import make_optimizer
+    from eav_tpu_torch.ops import moe
+    from eav_tpu_torch.train.loop import Trainer
+
+    ids = torch.randint(0, 512, (16, 256), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(3))
+    y = torch.arange(16, device=cuda) % 5
+    model, _ = _lfm2(cuda, compute_dtype=torch.bfloat16, stream_dtype=torch.bfloat16)
+    trainer = Trainer(model, get_preset("lfm2_moe_finetune").finetune, device=cuda)
+    opt = make_optimizer(model, trainer.cfg)
+    moe.reset_launches()
+    for i in range(4):
+        trainer.train_step(opt, ids[4 * i: 4 * i + 4], y[4 * i: 4 * i + 4])
+    torch.cuda.synchronize()
+    assert trainer.step_counts == {"eager": 1, "captured": 1, "replayed": 2}
+    layers = 2  # of the tiny model's four, two are MoE layers
+    assert [fn.launches for fn in moe.KERNELS] == [4 * layers * n for n in (2, 1, 2, 1, 2, 1)]

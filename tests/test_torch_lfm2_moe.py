@@ -3,8 +3,10 @@
 against the plain reference ``reference/lfm2_moe.py`` (logits, loss, every
 gradient and a ``Trainer`` step with AdamW), the causal plain versions of
 K1-K3 against a masked softmax, token ids through the ``Trainer`` as int64,
-the shares of the expert layer adding up to the whole layer, and the tally
-of routed pairs."""
+the shares of the expert layer adding up to the whole layer, the tally
+of routed pairs, and the expert layer's row passes that stop at the held
+count (their plain versions) against the masked formulation over the whole
+room they replaced."""
 
 import math
 
@@ -259,3 +261,101 @@ def test_the_reference_imports_nothing_of_the_program():
     names = set(json.loads(out.strip().splitlines()[-1]))
     assert "reference" in names and "torch" in names
     assert not names & {"jax", "jaxlib", "flax", "eav_tpu", "eav_tpu_torch"}
+
+
+def masked_layer(layer, u):
+    """The expert layer as it ran before its row passes stopped at the held
+    count: the gather, both masks, the SwiGLU and the scatter-add over the
+    whole room of N·k rows."""
+    shape, n_held, k = u.shape, layer.w1.shape[0], layer.top_k
+    u = u.reshape(-1, shape[-1])
+    idx, w = layer.route(u)
+    local = layer.local[idx.reshape(-1)]
+    order = torch.sort(local, stable=True).indices
+    counts = torch.zeros(n_held + 1, dtype=torch.int64).scatter_add_(
+        0, local, torch.ones_like(local))
+    offs = counts[:n_held].cumsum(0).to(torch.int32)
+    tok, valid = order // k, (local[order] < n_held)[:, None]
+    x = torch.where(valid, u[tok], 0)
+    g = moe.grouped_mm(x, layer.w1.transpose(1, 2), offs)
+    up = moe.grouped_mm(x, layer.w3.transpose(1, 2), offs)
+    y = moe.grouped_mm(moe.swiglu(g, up), layer.w2.transpose(1, 2), offs)
+    y = torch.where(valid, y, 0) * w.reshape(-1)[order, None]
+    return torch.zeros_like(u).index_add(0, tok, y).reshape(shape), int(offs[-1])
+
+
+@pytest.mark.parametrize("held,bias,share", [
+    ([1, 3, 4, 6], None, "partial"),
+    (None, None, "all"),
+    ([1, 3, 4, 6], -10.0 * torch.tensor([0, 1, 0, 1, 1, 0, 1, 0.0]), "none"),
+])
+def test_the_row_passes_equal_the_masked_room(held, bias, share):
+    """One MoE layer in float32 on 3 x 64 tokens, with a gradient: the
+    dispatch, room SwiGLU and combine (their plain versions) against the
+    masked formulation over the whole room, output and the gradients of u,
+    w1, w3, w2 and the router to 1e-5; at a partial held count, with every
+    pair held (N·k) and with none (a bias that keeps the router off the held
+    experts)."""
+    gen = torch.Generator().manual_seed(11)
+    layer = moe.MoE(64, 32, 8, 2, held)
+    for p in layer.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen) / 8)
+    layer.expert_bias.copy_(BIAS if bias is None else bias)
+    u = torch.randn(3, T, 64, generator=gen)
+    dout = torch.randn(3, T, 64, generator=gen)
+    got, want = [], []
+    for fn, into in ((layer, got), (lambda v: masked_layer(layer, v)[0], want)):
+        x = u.clone().requires_grad_(True)
+        layer.zero_grad(set_to_none=False)
+        out = fn(x)
+        out.backward(dout)
+        into += [out.detach(), x.grad] + [p.grad.clone() for p in
+                                          (layer.w1, layer.w3, layer.w2, layer.gate.weight)]
+    count, room = masked_layer(layer, u)[1], 3 * T * 2
+    assert 0 < count < room if share == "partial" else count == {"all": room, "none": 0}[share]
+    names = ("out", "u", "w1", "w3", "w2", "gate.weight")
+    for name, a, b in zip(names, got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+    if share != "none":
+        assert all(float(t.abs().max()) > 0 for t in got)
+
+
+def test_the_plain_row_passes_read_nothing_past_the_held_count(monkeypatch):
+    """The plain dispatch, SwiGLU and combine and their backwards with the
+    room's rows past the held count set to NaN in every room operand, and
+    their own room outputs allocated as NaN: what they return below the
+    count, and every token row and weight gradient, is finite and equal to
+    the same passes on zeroed tails."""
+    gen = torch.Generator().manual_seed(12)
+    n, k, width, ffn, count = 40, 4, 16, 8, 57
+    order = torch.randperm(n * k, generator=gen).to(torch.int32)
+    slot = torch.empty_like(order).scatter_(0, order.long(), torch.arange(n * k, dtype=torch.int32))
+    offs = torch.tensor([20, 41, count], dtype=torch.int32)
+    u = torch.randn(n, width, generator=gen)
+    w = torch.rand(n, k, generator=gen)
+    dout = torch.randn(n, width, generator=gen)
+    room = {name: torch.randn(n * k, cols, generator=gen)
+            for name, cols in (("dx", width), ("g", ffn), ("up", ffn), ("dh", ffn), ("y", width))}
+
+    def passes(tail):
+        r = {name: t.clone() for name, t in room.items()}
+        for t in r.values():
+            t[count:] = tail
+        return [moe.dispatch(u, order, offs, k)[:count],
+                moe.dispatch_backward(r["dx"], slot, offs, k),
+                moe.room_swiglu(r["g"], r["up"], offs)[:count],
+                *(t[:count] for t in moe.room_swiglu_backward(r["dh"], r["g"], r["up"], offs)),
+                moe.combine(r["y"], w, slot, offs),
+                moe.combine_backward(dout, r["y"], w, slot, offs)[0][:count],
+                moe.combine_backward(dout, r["y"], w, slot, offs)[1]]
+
+    clean = passes(0.0)
+    monkeypatch.setattr(moe, "room_empty", lambda rows, cols, like: torch.full(
+        (rows, cols), float("nan"), dtype=like.dtype))
+    poisoned = passes(float("nan"))
+    for a, b in zip(poisoned, clean):
+        assert bool(a.isfinite().all())
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    held = slot.view(n, k) < count
+    assert bool(held.any()) and not bool(held.all())
+    assert bool((clean[-1][~held] == 0).all()) and bool((clean[-1][held] != 0).all())
